@@ -1,0 +1,13 @@
+from t2v_torch.core.config import (
+    CLIPTextConfig,
+    ModelScopeUNetConfig,
+    T2VArgs,
+    VAEConfig,
+    sanity_check_args,
+)
+from t2v_torch.core.dtypes import Policy
+
+__all__ = [
+    "CLIPTextConfig", "ModelScopeUNetConfig", "Policy", "T2VArgs",
+    "VAEConfig", "sanity_check_args",
+]

@@ -1,0 +1,154 @@
+"""Configuration schema of the PyTorch port.
+
+The port's own copy of the JAX package's ``core/config.py``: the model
+architectures (ModelScope UNet, SD KL-VAE, OpenCLIP text tower) and the
+generation request with its reference defaults. Field names, defaults and
+``tiny()`` miniatures are the same, so one request or config means the same
+thing to both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ModelScopeUNetConfig:
+    """Architecture of the ModelScope 3D-factorised UNet (``UNetSD``);
+    defaults are the published ModelScope 1.7B text2video values."""
+
+    in_dim: int = 4
+    dim: int = 320
+    y_dim: int = 768
+    context_dim: int = 1024
+    out_dim: int = 4
+    dim_mult: tuple[int, ...] = (1, 2, 4, 4)
+    num_heads: int = 8
+    head_dim: int = 64
+    num_res_blocks: int = 2
+    attn_scales: tuple[float, ...] = (1.0, 0.5, 0.25)
+    dropout: float = 0.1
+    temporal_attention: bool = True
+    temporal_attn_times: int = 1
+    use_scale_shift_norm: bool = False
+    parameterization: str = "eps"  # "eps" | "x0" | "v"
+    num_timesteps: int = 1000
+
+    @property
+    def embed_dim(self) -> int:
+        return self.dim * 4
+
+    def tiny(self) -> "ModelScopeUNetConfig":
+        """A CPU-testable miniature with the same topology."""
+        return dataclasses.replace(
+            self,
+            dim=32,
+            context_dim=32,
+            y_dim=32,
+            num_heads=2,
+            head_dim=16,
+            num_res_blocks=1,
+            dim_mult=(1, 2),
+            attn_scales=(1.0, 0.5),
+        )
+
+
+@dataclass(frozen=True)
+class VAEConfig:
+    """SD KL-VAE (``VQGAN_autoencoder.pth``) architecture."""
+
+    z_channels: int = 4
+    embed_dim: int = 4
+    in_channels: int = 3
+    out_channels: int = 3
+    ch: int = 128
+    ch_mult: tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    attn_resolutions: tuple[int, ...] = ()
+    resolution: int = 256
+    double_z: bool = True
+    scale_factor: float = 0.18215
+
+    def tiny(self) -> "VAEConfig":
+        # ch must stay a multiple of 32 (GroupNorm groups)
+        return dataclasses.replace(self, ch=32, ch_mult=(1, 2), num_res_blocks=1)
+
+
+@dataclass(frozen=True)
+class CLIPTextConfig:
+    """OpenCLIP text tower; defaults are ViT-H-14 (width 1024, 24 layers,
+    16 heads, penultimate layer output)."""
+
+    vocab_size: int = 49408
+    width: int = 1024
+    layers: int = 24
+    heads: int = 16
+    context_length: int = 77
+    layer: str = "penultimate"  # "last" | "penultimate"
+    final_ln: bool = True
+    act: str = "gelu"  # "gelu" | "quick_gelu"
+
+    @classmethod
+    def vit_h_14(cls) -> "CLIPTextConfig":
+        return cls()
+
+    def tiny(self) -> "CLIPTextConfig":
+        return dataclasses.replace(self, width=64, layers=2, heads=2, vocab_size=1024)
+
+
+SAMPLER_NAMES: tuple[str, ...] = (
+    "DDIM_Gaussian", "DDIM", "UniPC", "DPM++ 2M", "DPM++ 2M Karras",
+    "Euler", "Euler a",
+)
+
+
+@dataclass
+class T2VArgs:
+    """Generation request with the reference's defaults."""
+
+    prompt: str = ""
+    n_prompt: str = "text, watermark, copyright, blurry, nsfw"
+    sampler: str = "DDIM_Gaussian"
+    steps: int = 30
+    frames: int = 24
+    seed: int = -1
+    cfg_scale: float = 17.0
+    width: int = 256
+    height: int = 256
+    eta: float = 0.0
+    batch_count: int = 1
+    do_vid2vid: bool = False
+    vid2vid_input: str | None = None
+    strength: float = 0.75
+    vid2vid_startFrame: int = 0
+    inpainting_image: str | None = None
+    inpainting_frames: int = 0
+    inpainting_weights: str = '0:(t/max_i_f), "max_i_f":(1)'
+    cond_fps: int | None = None
+    comma_padding_backtrack: int = 20
+    enable_emphasis: bool = True
+    model_type: str = "ModelScope"
+    model: str | None = "<modelscope>"
+
+
+def sanity_check_args(args: T2VArgs) -> None:
+    """Validate a request (the reference's ``T2VArgs_sanity_check``)."""
+    if args.frames < 1:
+        raise ValueError("Frames count cannot be lower than 1!")
+    if args.batch_count < 1:
+        raise ValueError("Batch count cannot be lower than 1!")
+    if args.width < 1 or args.height < 1:
+        raise ValueError("Video dimensions cannot be lower than 1 pixel!")
+    if args.cfg_scale < 1:
+        raise ValueError("CFG scale cannot be lower than 1!")
+    if args.steps < 1:
+        raise ValueError("Steps cannot be lower than 1!")
+    if not 0 <= args.strength <= 1:
+        raise ValueError("vid2vid strength should be in range of 0 to 1!")
+    if args.vid2vid_startFrame >= args.frames:
+        raise ValueError("vid2vid start frame cannot be greater than the number of frames!")
+    if not 0 <= args.inpainting_frames <= args.frames:
+        raise ValueError("inpainting frames count should lie between 0 and the frames number!")
+    if args.sampler not in SAMPLER_NAMES:
+        raise ValueError("Sampler does not exist.")
