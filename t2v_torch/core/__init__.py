@@ -3,11 +3,12 @@ from t2v_torch.core.config import (
     ModelScopeUNetConfig,
     T2VArgs,
     VAEConfig,
+    VideoCrafterUNetConfig,
     sanity_check_args,
 )
 from t2v_torch.core.dtypes import Policy
 
 __all__ = [
     "CLIPTextConfig", "ModelScopeUNetConfig", "Policy", "T2VArgs",
-    "VAEConfig", "sanity_check_args",
+    "VAEConfig", "VideoCrafterUNetConfig", "sanity_check_args",
 ]

@@ -1,8 +1,10 @@
 """Configuration schema of the PyTorch port.
 
 The port's own copy of the JAX package's ``core/config.py``: the model
-architectures (ModelScope UNet, SD KL-VAE, OpenCLIP text tower) and the
-generation request with its reference defaults. Field names, defaults and
+architectures (ModelScope UNet, VideoCrafter UNet, SD KL-VAE, CLIP text
+towers) and the generation request with its reference defaults (the JAX
+package keeps the VideoCrafter config beside its UNet, in
+``models/videocrafter_unet.py``). Field names, defaults and
 ``tiny()`` miniatures are the same, so one request or config means the same
 thing to both packages.
 """
@@ -55,6 +57,48 @@ class ModelScopeUNetConfig:
 
 
 @dataclass(frozen=True)
+class VideoCrafterUNetConfig:
+    """Architecture of the VideoCrafter (LVDM) 3D UNet; defaults are the
+    base text2video model's (8 heads at every level, so 40-, 80- and
+    160-wide heads; relative-position temporal attention over 16 frames)."""
+
+    in_channels: int = 4
+    out_channels: int = 4
+    model_channels: int = 320
+    num_res_blocks: int = 2
+    attention_resolutions: tuple[int, ...] = (1, 2, 4)
+    channel_mult: tuple[int, ...] = (1, 2, 4, 4)
+    num_heads: int = 8
+    transformer_depth: int = 1
+    context_dim: int = 768
+    kernel_size_t: int = 1
+    padding_t: int = 0
+    temporal_length: int = 16
+    use_relative_position: bool = True
+    num_classes: int | None = None  # class-conditional label embedding (adm)
+    conditioning_key: str = "crossattn"
+    cond_stage2_key: str | None = None  # "temporal_context": FPS-conditioned
+    parameterization: str = "eps"  # "eps" | "x0" | "v"
+    num_timesteps: int = 1000
+    linear_start: float = 0.00085
+    linear_end: float = 0.012
+    scale_factor: float = 0.18215
+
+    def tiny(self) -> "VideoCrafterUNetConfig":
+        """A CPU-testable miniature with the same topology."""
+        return dataclasses.replace(
+            self,
+            model_channels=32,
+            context_dim=32,
+            num_heads=2,
+            num_res_blocks=1,
+            channel_mult=(1, 2),
+            attention_resolutions=(1,),
+            temporal_length=4,
+        )
+
+
+@dataclass(frozen=True)
 class VAEConfig:
     """SD KL-VAE (``VQGAN_autoencoder.pth``) architecture."""
 
@@ -92,6 +136,11 @@ class CLIPTextConfig:
     @classmethod
     def vit_h_14(cls) -> "CLIPTextConfig":
         return cls()
+
+    @classmethod
+    def clip_l_14(cls) -> "CLIPTextConfig":
+        """The VideoCrafter text tower: CLIP-L, last hidden state, quick-GELU."""
+        return cls(width=768, layers=12, heads=12, layer="last", act="quick_gelu")
 
     def tiny(self) -> "CLIPTextConfig":
         return dataclasses.replace(self, width=64, layers=2, heads=2, vocab_size=1024)

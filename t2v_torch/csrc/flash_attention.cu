@@ -23,10 +23,15 @@
 //    runs on f32 scores, rescales the accumulator by exp(m_old - m_new),
 //    and feeds bf16 probabilities to the second product (as the TPU kernel
 //    feeds p.astype(v.dtype));
-//  * templated on D. D = 512 (the VAE's single head) is the trap: a
-//    64-row f32 accumulator there is 128 KB, so D = 512 takes 16-row query
-//    tiles and 32-row K/V tiles (about 120 KB of dynamic shared memory,
-//    opted in with cudaFuncSetAttribute); D = 64 takes 64 x 64 tiles;
+//  * templated on D, the head dim rounded up to a multiple of 16 (the WMMA
+//    K step); the real head dim d <= D is a run-time argument: columns
+//    d..D of the Q, K and V tiles are zero-filled on load, which adds
+//    nothing to a dot product, and only d columns are written back (the
+//    VideoCrafter UNet's 40-wide heads run under D = 48). D = 512 (the
+//    VAE's single head) is the trap: a 64-row f32 accumulator there is
+//    128 KB, so D = 512 takes 16-row query tiles and 32-row K/V tiles
+//    (about 120 KB of dynamic shared memory, opted in with
+//    cudaFuncSetAttribute); D <= 160 takes 64 x 64 tiles;
 //  * the scale multiplies the f32 scores (for a power of two this equals
 //    the TPU path's exact pre-scaling of q).
 #include "common.cuh"
@@ -57,7 +62,7 @@ struct FlashSmem {
 template <int D, int BQ, int BKV>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int N, int S, float scale) {
+    bf16* __restrict__ o, int N, int S, int d, float scale) {
   using L = FlashSmem<D, BQ, BKV>;
   constexpr int TPR = NT / BQ;  // threads per softmax row
   constexpr int CPT = BKV / TPR;  // columns per thread
@@ -76,14 +81,15 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int q0 = blockIdx.x * BQ;
-  const size_t bq = (size_t)blockIdx.y * N * D;
-  const size_t bkv = (size_t)blockIdx.y * S * D;
+  const size_t bq = (size_t)blockIdx.y * N * d;
+  const size_t bkv = (size_t)blockIdx.y * S * d;
 
   for (int e = tid; e < BQ * D / 8; e += NT) {
     const int r = e / (D / 8);
     const int c = (e % (D / 8)) * 8;
     uint4 val = zero_uint4();
-    if (q0 + r < N) val = *reinterpret_cast<const uint4*>(q + bq + (size_t)(q0 + r) * D + c);
+    if (q0 + r < N && c < d)
+      val = *reinterpret_cast<const uint4*>(q + bq + (size_t)(q0 + r) * d + c);
     *reinterpret_cast<uint4*>(Qs + r * L::LDQ + c) = val;
   }
   for (int e = tid; e < BQ * D; e += NT) Os[(e / D) * L::LDO + e % D] = 0.0f;
@@ -97,9 +103,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       const int r = e / (D / 8);
       const int c = (e % (D / 8)) * 8;
       uint4 kval = zero_uint4(), vval = zero_uint4();
-      if (kv0 + r < S) {
-        kval = *reinterpret_cast<const uint4*>(k + bkv + (size_t)(kv0 + r) * D + c);
-        vval = *reinterpret_cast<const uint4*>(v + bkv + (size_t)(kv0 + r) * D + c);
+      if (kv0 + r < S && c < d) {
+        kval = *reinterpret_cast<const uint4*>(k + bkv + (size_t)(kv0 + r) * d + c);
+        vval = *reinterpret_cast<const uint4*>(v + bkv + (size_t)(kv0 + r) * d + c);
       }
       *reinterpret_cast<uint4*>(Ks + r * L::LDQ + c) = kval;
       *reinterpret_cast<uint4*>(Vs + r * L::LDQ + c) = vval;
@@ -188,16 +194,16 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   for (int e = tid; e < BQ * D; e += NT) {
     const int r = e / D;
     const int c = e % D;
-    if (q0 + r < N) {
+    if (q0 + r < N && c < d) {
       const float l = l_s[r];
       const float safe = (l == 0.0f) ? 1.0f : l;
-      o[bq + (size_t)(q0 + r) * D + c] = __float2bfloat16(Os[r * L::LDO + c] / safe);
+      o[bq + (size_t)(q0 + r) * d + c] = __float2bfloat16(Os[r * L::LDO + c] / safe);
     }
   }
 }
 
 template <int D, int BQ, int BKV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int N, int S,
+int launch(const void* q, const void* k, const void* v, void* o, int B, int N, int S, int d,
            float scale, cudaStream_t stream) {
   constexpr int bytes = FlashSmem<D, BQ, BKV>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, BQ, BKV>,
@@ -206,18 +212,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int N, i
   const dim3 grid((N + BQ - 1) / BQ, B);
   flash_fwd_kernel<D, BQ, BKV><<<grid, NT, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), N, S, scale);
+      static_cast<bf16*>(o), N, S, d, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// returns a CUDA error code; 1 (cudaErrorInvalidValue) for an unsupported D
+// returns a CUDA error code; 1 (cudaErrorInvalidValue) for an unsupported
+// head dim (not a multiple of 8, or above 160 and not 512)
 extern "C" int t2v_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                        int B, int N, int S, int D, float scale,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64, 64, 64>(q, k, v, o, B, N, S, scale, st);
-  if (D == 512) return launch<512, 16, 32>(q, k, v, o, B, N, S, scale, st);
+  if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 48) return launch<48, 64, 64>(q, k, v, o, B, N, S, D, scale, st);
+  if (D <= 64) return launch<64, 64, 64>(q, k, v, o, B, N, S, D, scale, st);
+  if (D <= 80) return launch<80, 64, 64>(q, k, v, o, B, N, S, D, scale, st);
+  if (D <= 160) return launch<160, 64, 64>(q, k, v, o, B, N, S, D, scale, st);
+  if (D == 512) return launch<512, 16, 32>(q, k, v, o, B, N, S, D, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,8 +3,18 @@
 //   [+ residual on the last layer], plus per-channel sum / sum^2 of the
 //   bf16-rounded y (the next layer's GroupNorm statistics).
 //
-// Replaces: t2v/kernels/temporal_conv.py::_layer_kernel (driven by _layer
-// and the chain _chain / temporal_conv_chain).
+// Replaces: t2v/kernels/temporal_conv.py::_layer_kernel and, for long
+// videos (125 frames at C = 1280, every 250-frame level),
+// ::_chunked_layer_kernel (both driven by _layer and the chain _chain /
+// temporal_conv_chain). The chunked TPU kernel exists because a full-frame
+// tile overflows VMEM; its contract beyond the plain layer is that the
+// GroupNorm statistics stay global and exact across frame chunks and that
+// the neighbour frames beyond both ends of the video are zero AFTER the
+// activation. Both hold here by construction: the statistics arrive
+// finalised over the whole sample and leave as per-row-tile partials that
+// the caller sums over every tile, and an out-of-range tap writes zeros
+// into the A tile whatever frame the row tile sits in. Its halo operand
+// and chunk grid are not carried over.
 //
 // What bounds it on the H100: at the UNet's shapes each layer is a GEMM of
 // M = F*HW rows (frame, token) per sample, K = 3*C, N = C: 2*M*3C*C flops
@@ -16,8 +26,12 @@
 // Design:
 //  * implicit GEMM: a block owns a 64-row x 64-channel output tile of one
 //    sample; the K loop walks the three frame taps and 32-channel slices.
-//    Rows are (frame, token) pairs, so a tile may span frames and nothing
-//    limits the frame count (the TPU kernel needed a frame-chunked variant).
+//    Rows are (frame, token) pairs, so a tile may span frames (four of them
+//    at a 4x4 level) and nothing limits the frame count: 250 frames at a
+//    32x32 level are 4,000 row tiles of one sample. Offsets into x are
+//    64-bit; the three taps of a tile re-read rows that neighbouring row
+//    tiles load too, which the 50 MB L2 serves (a 250-frame sample at
+//    C = 320 is 164 MB, a frame 0.66 MB).
 //  * the A tile is built while loading: normalise with the finalised
 //    per-channel [mu; 1/sigma] in f32, affine, SiLU, round to bf16. A row
 //    whose source frame f + tap - 1 lies outside [0, F) is written as zeros

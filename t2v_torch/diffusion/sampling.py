@@ -1,5 +1,5 @@
-"""Sampling loop of the port: the DDIM_Gaussian branch of the JAX
-package's ``diffusion/sampling.py`` as a Python step loop.
+"""Sampling loop of the port: the single-state samplers (DDIM_Gaussian,
+DDIM) of the JAX package's ``diffusion/sampling.py`` as a Python step loop.
 
 Classifier-free guidance is fused: one model call on the ``[uncond; cond]``
 doubled batch per step. Prompt-editing conditionings are per-step tables
@@ -13,10 +13,11 @@ from typing import Callable
 
 import torch
 
+from t2v_torch.diffusion import ddim as ddim_mod
 from t2v_torch.diffusion import ddim_gaussian as gaussian_mod
 from t2v_torch.diffusion.schedules import DiffusionSchedule
 
-SAMPLERS = {"DDIM_Gaussian": gaussian_mod}
+SAMPLERS = {"DDIM_Gaussian": gaussian_mod, "DDIM": ddim_mod}
 
 
 def get_sampler(name: str):
@@ -35,7 +36,7 @@ def _cond_at(cond: torch.Tensor, step: int) -> torch.Tensor:
 def cfg_combine(y, u, scale: float, mode: str):
     """Classifier-free guidance combine over the channel (last) axis.
     "full": u + s*(y-u); "split_learned_range": guidance on the first C//2
-    channels, the rest copied from the conditional branch."""
+    channels, the rest copied from the conditional branch (DDIM_Gaussian)."""
     if mode == "full":
         return u + scale * (y - u)
     if mode == "split_learned_range":

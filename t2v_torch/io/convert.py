@@ -1,7 +1,8 @@
 """JAX parameter trees -> the port's state dicts.
 
 The inverse of the JAX package's converters (``io/convert.py::convert_unet``,
-``convert_vae`` and ``text/clip.py::convert_open_clip_text``): each takes
+``convert_vae``, ``io/convert_vc.py::convert_vc_unet`` and
+``text/clip.py::convert_open_clip_text`` / ``convert_hf_clip_text``): each takes
 the JAX package's parameter tree as numpy arrays (with or without the
 top-level ``"params"`` key) and returns a dict of numpy arrays under the
 reference torch state-dict keys and layouts, which the port's modules load
@@ -13,6 +14,7 @@ Layout rules (JAX -> torch):
   Conv kernel (kh, kw, in, out)   -> Conv2d (out, in, kh, kw)    [(3, 2, 0, 1)]
   Conv kernel (kt, kh, kw, in, out) -> Conv3d (out, in, kt, kh, kw) [(4, 3, 0, 1, 2)]
   Dense kernel (in, out)          -> Conv1d k=1 (out, in, 1)     [T + axis]
+  Dense kernel (in, out)          -> Conv3d k=1 (out, in, 1, 1, 1) [T + axes]
   Norm scale / bias               -> weight / bias
 """
 
@@ -23,8 +25,14 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from t2v_torch.core.config import CLIPTextConfig, ModelScopeUNetConfig, VAEConfig
+from t2v_torch.core.config import (
+    CLIPTextConfig,
+    ModelScopeUNetConfig,
+    VAEConfig,
+    VideoCrafterUNetConfig,
+)
 from t2v_torch.models.modelscope_unet import BlockDesc, build_topology
+from t2v_torch.models.videocrafter_unet import VCBlockDesc, build_vc_topology
 
 Tree = Mapping[str, Any]
 
@@ -124,6 +132,68 @@ def from_jax_unet(params: Tree, cfg: ModelScopeUNetConfig) -> dict[str, np.ndarr
     return sd
 
 
+def _conv3d_k1_from_dense(sd: dict, p: str, t: Tree) -> None:
+    sd[f"{p}.weight"] = _a(np.asarray(t["kernel"]).T[:, :, None, None, None])
+    sd[f"{p}.bias"] = _a(t["bias"])
+
+
+def _vc_attn(sd: dict, p: str, t: Tree) -> None:
+    for proj in ("to_q", "to_k", "to_v"):
+        _linear(sd, f"{p}.{proj}", t[proj])
+    _linear(sd, f"{p}.to_out.0", t["to_out"])
+    for table in ("relative_position_k", "relative_position_v"):
+        if table in t:
+            sd[f"{p}.{table}.embeddings_table"] = _a(t[table]["embeddings_table"])
+
+
+def _vc_block(sd: dict, d: VCBlockDesc, t: Tree, depth: int) -> None:
+    p = d.torch_path
+    if d.kind == "conv_in":
+        _conv3d(sd, p, t["conv"])
+    elif d.kind == "res":
+        _gn32(sd, f"{p}.in_layers.0", t["in_norm"])
+        _conv3d(sd, f"{p}.in_layers.2", t["in_conv"]["conv"])
+        _linear(sd, f"{p}.emb_layers.1", t["emb"])
+        _gn32(sd, f"{p}.out_layers.0", t["out_norm"])
+        _conv3d(sd, f"{p}.out_layers.3", t["out_conv"]["conv"])
+        if d.in_ch != d.out_ch:
+            _conv3d(sd, f"{p}.skip_connection", t["skip"])
+    elif d.kind == "st":
+        _gn32(sd, f"{p}.norm", t["norm"])
+        _conv3d_k1_from_dense(sd, f"{p}.proj_in", t["proj_in"])
+        _conv3d_k1_from_dense(sd, f"{p}.proj_out", t["proj_out"])
+        for i in range(depth):
+            bp, bt = f"{p}.transformer_blocks.{i}", t[f"block_{i}"]
+            for attn in ("attn1", "attn2", "attn1_tmp", "attn2_tmp"):
+                _vc_attn(sd, f"{bp}.{attn}", bt[attn])
+            for n in ("norm1", "norm2", "norm3", "norm4", "norm5"):
+                _norm(sd, f"{bp}.{n}", bt[n])
+            _linear(sd, f"{bp}.ff.net.0.proj", bt["ff"]["geglu"])
+            _linear(sd, f"{bp}.ff.net.2", bt["ff"]["out"])
+    elif d.kind == "downsample":
+        _conv3d(sd, f"{p}.op", t["conv"])
+    elif d.kind == "upsample":
+        _conv3d(sd, f"{p}.conv", t["conv_mod"]["conv"])
+    else:
+        raise ValueError(d.kind)
+
+
+def from_jax_vc_unet(params: Tree, cfg: VideoCrafterUNetConfig) -> dict[str, np.ndarray]:
+    """JAX ``VideoCrafterUNet`` parameters -> the Lightning checkpoint's
+    ``model.diffusion_model.*`` state dict (prefix stripped)."""
+    t = _unwrap(params)
+    sd: dict[str, np.ndarray] = {}
+    _linear(sd, "time_embed.0", t["time_embed_0"])
+    _linear(sd, "time_embed.2", t["time_embed_2"])
+    _gn32(sd, "out.0", t["head_norm"])
+    _conv3d(sd, "out.2", t["head_conv"]["conv"])
+    topo = build_vc_topology(cfg)
+    for entry in (*topo.encoder, topo.middle, *topo.decoder):
+        for d in entry:
+            _vc_block(sd, d, t[d.flax_name], cfg.transformer_depth)
+    return sd
+
+
 def _vae_resnet(sd: dict, p: str, t: Tree) -> None:
     _norm(sd, f"{p}.norm1", t["norm1"])
     _conv2d(sd, f"{p}.conv1", t["conv1"])
@@ -170,9 +240,38 @@ def from_jax_vae(params: Tree, cfg: VAEConfig) -> dict[str, np.ndarray]:
     return sd
 
 
-def from_jax_clip(params: Tree, cfg: CLIPTextConfig) -> dict[str, np.ndarray]:
-    """JAX ``CLIPTextTransformer`` parameters -> open_clip text state dict."""
+def _from_jax_clip_hf(t: Tree, n_layers: int) -> dict[str, np.ndarray]:
+    pre = "text_model."
+    sd: dict[str, np.ndarray] = {
+        f"{pre}embeddings.token_embedding.weight": _a(t["token_embedding"]["embedding"]),
+        f"{pre}embeddings.position_embedding.weight": _a(t["positional_embedding"]),
+    }
+    _norm(sd, f"{pre}final_layer_norm", t["ln_final"])
+    for i in range(n_layers):
+        tp, b = f"{pre}encoder.layers.{i}", t[f"resblock_{i}"]
+        _norm(sd, f"{tp}.layer_norm1", b["ln_1"])
+        _norm(sd, f"{tp}.layer_norm2", b["ln_2"])
+        w = np.asarray(b["in_proj"]["kernel"]).T
+        bias = np.asarray(b["in_proj"]["bias"])
+        for j, n in enumerate(("q", "k", "v")):
+            width = w.shape[1]
+            sd[f"{tp}.self_attn.{n}_proj.weight"] = _a(w[j * width : (j + 1) * width])
+            sd[f"{tp}.self_attn.{n}_proj.bias"] = _a(bias[j * width : (j + 1) * width])
+        _linear(sd, f"{tp}.self_attn.out_proj", b["out_proj"])
+        _linear(sd, f"{tp}.mlp.fc1", b["c_fc"])
+        _linear(sd, f"{tp}.mlp.fc2", b["c_proj"])
+    return sd
+
+
+def from_jax_clip(params: Tree, cfg: CLIPTextConfig, layout: str = "open_clip") -> dict[str, np.ndarray]:
+    """JAX ``CLIPTextTransformer`` parameters -> a text-tower state dict in
+    the ``open_clip`` layout (``CLIPTextTransformer``) or the Hugging Face
+    ``hf`` layout of the CLIP-L tower (``HFCLIPTextModel``)."""
     t = _unwrap(params)
+    if layout == "hf":
+        return _from_jax_clip_hf(t, cfg.layers - (1 if cfg.layer == "penultimate" else 0))
+    if layout != "open_clip":
+        raise ValueError(layout)
     sd: dict[str, np.ndarray] = {
         "token_embedding.weight": _a(t["token_embedding"]["embedding"]),
         "positional_embedding": _a(t["positional_embedding"]),
@@ -199,6 +298,6 @@ def load_into(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> torch.nn
     if missing:
         raise KeyError(f"state dict lacks {len(missing)} keys, e.g. {missing[:3]}")
     module.load_state_dict(
-        {k: torch.from_numpy(np.asarray(sd[k], np.float32)).to(own[k].dtype) for k in own}
+        {k: torch.from_numpy(np.array(sd[k], np.float32)).to(own[k].dtype) for k in own}
     )
     return module

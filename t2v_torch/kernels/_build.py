@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 )
 
 # every csrc/<name>.cu the main path launches
-KERNELS = ("temporal_conv", "flash_attention", "fused_mha")
+KERNELS = ("temporal_conv", "flash_attention", "fused_mha", "relpos_mha")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -7,14 +7,18 @@
   and CPU tensors go to ``attention_plain``;
 * ``self_attention_packed`` on packed heads (B, N, H·D): on a CUDA tensor
   N < ``FLASH_MIN_KV`` goes to the packed short-sequence kernel and longer
-  sequences are folded and go to flash; CPU tensors take the plain path.
+  sequences are folded and go to flash; CPU tensors take the plain path;
+* ``cross_attention_packed`` on packed heads, q (B, N, H·D) over a shared
+  context k/v (B, S, H·D): on a CUDA tensor S < ``FLASH_MIN_KV`` goes to
+  the packed cross-attention kernel, longer contexts fold and go to flash;
+  CPU tensors take the plain path.
 """
 
 from __future__ import annotations
 
 from t2v_torch.kernels.flash_attention import flash_attention
 from t2v_torch.kernels.flash_attention import flash_attention_plain as attention_plain
-from t2v_torch.kernels.fused_mha import fused_self_mha
+from t2v_torch.kernels.fused_mha import fused_cross_mha, fused_self_mha
 
 FLASH_MIN_KV = 512
 
@@ -44,3 +48,15 @@ def self_attention_packed(q, k, v, heads: int, scale: float | None = None):
         return fused_self_mha(q, k, v, heads, scale)
     unfold = lambda t: t.reshape(b, n, heads, hd // heads)
     return attention_mh(unfold(q), unfold(k), unfold(v), scale).reshape(b, n, hd)
+
+
+def cross_attention_packed(q, k, v, heads: int, scale: float | None = None):
+    """Cross-attention on (B, N, H·D) queries over a (B, S, H·D) context
+    with the heads packed in the last axis. A caller whose context is shared
+    by the frames of a sample merges the frame axis into N first."""
+    b, n, hd = q.shape
+    s = k.shape[1]
+    if q.is_cuda and s < FLASH_MIN_KV:
+        return fused_cross_mha(q, k, v, heads, scale)
+    unfold = lambda t, length: t.reshape(b, length, heads, hd // heads)
+    return attention_mh(unfold(q, n), unfold(k, s), unfold(v, s), scale).reshape(b, n, hd)

@@ -1,8 +1,8 @@
 """Flash attention forward: ``flash_attention(q (B, N, D), k/v (B, S, D),
 scale)`` -> (B, N, D), heads pre-folded into B.
 
-On a CUDA tensor this launches ``csrc/flash_attention.cu`` (bf16, D of 64
-or 512); on a CPU tensor it runs ``flash_attention_plain``, dot-product
+On a CUDA tensor this launches ``csrc/flash_attention.cu`` (bf16, D of 40,
+64, 80, 160 or 512); on a CPU tensor it runs ``flash_attention_plain``, dot-product
 attention with an f32 softmax and the probabilities rounded to v's dtype
 before the second product, as the kernel feeds them.
 """
@@ -16,7 +16,7 @@ import torch
 from t2v_torch.kernels import _build
 
 COUNTER = _build.LaunchCounter()
-SUPPORTED_D = (64, 512)
+SUPPORTED_D = (40, 64, 80, 160, 512)
 
 
 def flash_attention_plain(q, k, v, scale: float | None = None) -> torch.Tensor:

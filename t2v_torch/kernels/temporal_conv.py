@@ -11,7 +11,10 @@ dtype; the last layer adds the chain input. A layer's epilogue emits the
 per-channel sum and sum^2 of its rounded output, which the next layer's
 GroupNorm needs, so no statistics pass re-reads the tensor.
 
-On a CUDA tensor each layer is one launch of ``csrc/temporal_conv.cu``;
+On a CUDA tensor each layer is one launch of ``csrc/temporal_conv.cu`` at
+any frame count (the JAX package needs a second, frame-chunked kernel for
+125 and 250 frames; here a row tile may span frames and the GroupNorm
+statistics are finalised over every tile, so they stay global and exact);
 on a CPU tensor it is ``layer_plain``. The O(B*C) statistics glue
 (``input_stats``, ``finalize_stats``) is plain torch on both.
 """
@@ -29,10 +32,22 @@ NUM_GROUPS = 32
 COUNTER = _build.LaunchCounter()
 
 
+# elements upcast to f32 at a time by ``input_stats``: a 24-frame level is
+# one chunk, a 250-frame level is walked in frame chunks of about 128 MB
+STATS_CHUNK_ELEMENTS = 1 << 25
+
+
 def input_stats(x: torch.Tensor) -> torch.Tensor:
-    """(B, 2, C) raw per-channel sum and sum^2 of the chain input."""
-    x32 = x.float()
-    return torch.stack([x32.sum(dim=(1, 2)), (x32 * x32).sum(dim=(1, 2))], dim=1)
+    """(B, 2, C) raw per-channel sum and sum^2 of the chain input, summed in
+    f32 over frame chunks so that a long video is never upcast whole."""
+    b, f, hw, c = x.shape
+    step = max(1, STATS_CHUNK_ELEMENTS // max(1, b * hw * c))
+    out = torch.zeros((b, 2, c), device=x.device, dtype=torch.float32)
+    for f0 in range(0, f, step):
+        x32 = x[:, f0 : f0 + step].float()
+        out[:, 0] += x32.sum(dim=(1, 2))
+        out[:, 1] += (x32 * x32).sum(dim=(1, 2))
+    return out
 
 
 def finalize_stats(raw: torch.Tensor, n_el: int, eps: float) -> torch.Tensor:

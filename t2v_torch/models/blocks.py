@@ -31,7 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from t2v_torch.kernels.attention import attention_mh, self_attention_packed
+from t2v_torch.kernels.attention import (
+    attention_mh,
+    cross_attention_packed,
+    self_attention_packed,
+)
 from t2v_torch.kernels.temporal_conv import temporal_conv_chain
 
 
@@ -102,8 +106,16 @@ def conv1x1_as_linear(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
 class CrossAttention(nn.Module):
     """QKV attention; self-attention when no context is given. Self
     attention keeps the heads packed (B, N, H·D) and goes through
-    ``self_attention_packed``; cross-attention folds the heads and goes
-    through ``attention_mh`` (the 77-token context takes the plain path)."""
+    ``self_attention_packed``; cross-attention with one context row per
+    query row folds the heads and goes through ``attention_mh`` (the
+    77-token context takes the plain path).
+
+    A context whose batch is smaller than the query batch is shared
+    conditioning: one context row per sample while x carries ``b = cb·f``
+    frame rows, sample-major. k/v are then projected once per sample and
+    the frame axis merges into the query rows (a free reshape), so one
+    sample's whole video attends its single context through
+    ``cross_attention_packed`` (the VideoCrafter ST block)."""
 
     def __init__(self, query_dim: int, context_dim: int | None = None,
                  heads: int = 8, dim_head: int = 64):
@@ -122,6 +134,11 @@ class CrossAttention(nn.Module):
         b, n, inner = q.shape
         if context is None:
             out = self_attention_packed(q, k, v, self.heads)
+        elif k.shape[0] != b:
+            cb = k.shape[0]
+            out = cross_attention_packed(
+                q.reshape(cb, (b // cb) * n, inner), k, v, self.heads
+            ).reshape(b, n, inner)
         else:
             s = k.shape[1]
             unfold = lambda t, length: t.reshape(b, length, self.heads, self.dim_head)

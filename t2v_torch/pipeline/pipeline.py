@@ -67,8 +67,33 @@ def _spatial_scale(vae_cfg: VAEConfig) -> int:
     return 2 ** (len(vae_cfg.ch_mult) - 1)
 
 
-def _decode_chunk_frames(h_img: int, w_img: int) -> int:
-    return max(1, DECODE_PIXEL_BUDGET // max(1, h_img * w_img))
+def decode_chunk_frames(n: int, h_img: int, w_img: int) -> int:
+    """Frames per VAE decode call for ``n`` frames of h_img x w_img pixels:
+    the pixel budget's share, balanced over the calls so that the
+    zero-padded tail of the last one stays small."""
+    step_f = max(1, DECODE_PIXEL_BUDGET // max(1, h_img * w_img))
+    if n > step_f:
+        step_f = -(-n // -(-n // step_f))
+    return step_f
+
+
+@torch.no_grad()
+def decode_latents(vae: AutoencoderKL, vae_cfg: VAEConfig, latents: torch.Tensor,
+                   scale_factor: float = SCALE_FACTOR) -> np.ndarray:
+    """(F, h, w, 4) scaled latents -> (F, H, W, 3) uint8 RGB, decoded in
+    frame chunks that bound the decoder's activation memory."""
+    up = _spatial_scale(vae_cfg)
+    n = latents.shape[0]
+    step_f = decode_chunk_frames(n, latents.shape[1] * up, latents.shape[2] * up)
+    outs = []
+    for i in range(0, n, step_f):
+        chunk = latents[i : i + step_f]
+        pad = step_f - chunk.shape[0] if n > step_f else 0
+        if pad:
+            chunk = torch.cat([chunk, chunk.new_zeros((pad, *chunk.shape[1:]))])
+        img = decode_uint8(vae, chunk, scale_factor)
+        outs.append(img[: img.shape[0] - pad].cpu().numpy())
+    return np.concatenate(outs, axis=0)
 
 
 # sub-modules whose weights the JAX package initialises to zero
@@ -186,25 +211,9 @@ class ModelScopePipeline:
 
     # ------------------------------------------------------------------
 
-    @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
-        """(F, h, w, 4) scaled latents -> (F, H, W, 3) uint8 RGB, decoded in
-        frame chunks that bound the decoder's activation memory."""
-        up = _spatial_scale(self.vae_cfg)
-        n = latents.shape[0]
-        step_f = _decode_chunk_frames(latents.shape[1] * up, latents.shape[2] * up)
-        if n > step_f:
-            # balanced chunks keep the zero-padded tail small
-            step_f = -(-n // -(-n // step_f))
-        outs = []
-        for i in range(0, n, step_f):
-            chunk = latents[i : i + step_f]
-            pad = step_f - chunk.shape[0] if n > step_f else 0
-            if pad:
-                chunk = torch.cat([chunk, chunk.new_zeros((pad, *chunk.shape[1:]))])
-            img = decode_uint8(self.vae, chunk, SCALE_FACTOR)
-            outs.append(img[: img.shape[0] - pad].cpu().numpy())
-        return np.concatenate(outs, axis=0)
+        """(F, h, w, 4) scaled latents -> (F, H, W, 3) uint8 RGB."""
+        return decode_latents(self.vae, self.vae_cfg, latents, SCALE_FACTOR)
 
     def infer(
         self,

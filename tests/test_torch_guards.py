@@ -17,11 +17,15 @@ import pytest
 import torch
 
 from t2v.core import config as jconfig
+from t2v.diffusion import schedules as jschedules
+from t2v.models import videocrafter_unet as jvc
 from t2v_torch.core import config as tconfig
 from t2v_torch.core import rng as trng
+from t2v_torch.diffusion import schedules as tschedules
 from t2v_torch.kernels import _build
 from t2v_torch.kernels import flash_attention as tflash
 from t2v_torch.kernels import fused_mha as tfused
+from t2v_torch.kernels import relpos_mha as trelpos
 from t2v_torch.kernels import temporal_conv as ttc
 
 REPO = Path(__file__).resolve().parents[1]
@@ -71,6 +75,15 @@ def test_cuda_entry_point_raises_without_a_card():
         pytest.skip("this host has a GPU")
     with pytest.raises(RuntimeError, match="no GPU"):
         ModelScopePipeline.random_init()
+
+
+def test_videocrafter_entry_point_raises_without_a_card():
+    from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        VideoCrafterPipeline.random_init(tconfig.VideoCrafterUNetConfig().tiny())
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -138,9 +151,64 @@ def test_fused_mha_refuses(q, heads):
     tfused.check_args(_bf16(2, 24, 128), _bf16(2, 24, 128), _bf16(2, 24, 128), 2)
 
 
-@pytest.mark.parametrize("name", ["ModelScopeUNetConfig", "VAEConfig", "CLIPTextConfig", "T2VArgs"])
+@pytest.mark.parametrize("q,k,heads", [
+    (torch.zeros(2, 24, 128), torch.zeros(2, 77, 128), 2),   # float32
+    (_bf16(2, 24, 96), _bf16(2, 77, 96), 3),                 # head dim 32
+    (_bf16(2, 24, 128), _bf16(3, 77, 128), 2),               # context batch differs
+    (_bf16(2, 24, 128), _bf16(2, 77, 64), 2),                # context width differs
+    (_bf16(2, 24, 128), _bf16(2, 512, 128), 2),              # context too long
+    (_bf16(2, 24, 128), _bf16(2, 128, 77).transpose(1, 2), 2),   # not contiguous
+    (_bf16(24, 128), _bf16(77, 128), 2),                     # 2-D
+])
+def test_fused_cross_mha_refuses(q, k, heads):
+    with pytest.raises(ValueError):
+        tfused.check_cross_args(q, k, k, heads)
+    tfused.check_cross_args(_bf16(2, 24, 128), _bf16(2, 77, 128), _bf16(2, 77, 128), 2)
+
+
+@pytest.mark.parametrize("dh", tfused.HEAD_DIMS)
+def test_packed_kernels_take_the_models_head_dims(dh):
+    x = _bf16(2, 24, 2 * dh)
+    tfused.check_args(x, x, x, 2)
+    tfused.check_cross_args(x, _bf16(2, 77, 2 * dh), _bf16(2, 77, 2 * dh), 2)
+    if dh != 64:  # 64 is also the ModelScope width
+        assert dh in tflash.SUPPORTED_D
+    tflash.check_args(_bf16(2, 600, dh), _bf16(2, 600, dh), _bf16(2, 600, dh))
+
+
+def _relpos_args(**over):
+    x, table = _bf16(8, 6, 80), _bf16(4, 4, 40)   # 2 samples x 4 frames, 2 heads of 40
+    args = dict(q=x, k=x, v=x, k2=table, v2=table, heads=2, frame_split=4)
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("bad", [
+    dict(q=torch.zeros(8, 6, 80)),                        # float32
+    dict(k=_bf16(8, 5, 80)),                              # shapes differ
+    dict(frame_split=3),                                  # does not divide B*T
+    dict(frame_split=8, k2=_bf16(8, 8, 40), v2=_bf16(8, 8, 40), heads=4),   # head dim 20
+    dict(k2=_bf16(4, 4, 80)),                             # table width
+    dict(v2=_bf16(4, 5, 40)),                             # table frames
+    dict(k2=torch.zeros(4, 4, 40)),                       # float32 table
+    dict(q=_bf16(8, 80, 6).transpose(1, 2)),              # not contiguous
+    dict(q=_bf16(8, 480)),                                # 2-D
+])
+def test_relpos_mha_refuses(bad):
+    with pytest.raises(ValueError):
+        trelpos.check_args(**_relpos_args(**bad))
+    trelpos.check_args(**_relpos_args())
+
+
+def _jax_config(name):
+    return getattr(jvc if name == "VideoCrafterUNetConfig" else jconfig, name)
+
+
+@pytest.mark.parametrize("name", ["ModelScopeUNetConfig", "VideoCrafterUNetConfig", "VAEConfig",
+                                  "CLIPTextConfig", "T2VArgs"])
 def test_config_copies_match_jax(name):
-    mine, theirs = getattr(tconfig, name)(), getattr(jconfig, name)()
+    mine, theirs = getattr(tconfig, name)(), _jax_config(name)()
+    assert {f.name for f in dataclasses.fields(mine)} == {f.name for f in dataclasses.fields(theirs)}
     assert dataclasses.asdict(mine) == {
         f.name: getattr(theirs, f.name) for f in dataclasses.fields(mine)}
     if hasattr(mine, "tiny"):
@@ -156,6 +224,27 @@ def test_sanity_check_args_matches_jax(bad):
     with pytest.raises(ValueError) as theirs:
         jconfig.sanity_check_args(jconfig.T2VArgs(**bad))
     assert str(mine.value) == str(theirs.value)
+
+
+def test_schedule_copies_match_jax():
+    mine = tschedules.DiffusionSchedule.from_betas(tschedules.beta_schedule("linear", 1000, 0.00085, 0.012))
+    theirs = jschedules.DiffusionSchedule.from_betas(jschedules.beta_schedule("linear", 1000, 0.00085, 0.012))
+    for name in ("alphas_cumprod", "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod"):
+        np.testing.assert_array_equal(getattr(mine, name), getattr(theirs, name))
+    for steps in (20, 30, 7, 1000):
+        ts = tschedules.make_ddim_timesteps(steps, 1000)
+        np.testing.assert_array_equal(ts, jschedules.make_ddim_timesteps(steps, 1000))
+        ts = np.minimum(ts, 999)
+        for a, b in zip(tschedules.make_ddim_sampling_parameters(mine.alphas_cumprod, ts, 0.3),
+                        jschedules.make_ddim_sampling_parameters(theirs.alphas_cumprod, ts, 0.3)):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(tschedules.make_ddim_timesteps(10, 100, "quad"),
+                                  jschedules.make_ddim_timesteps(10, 100, "quad"))
+    with pytest.raises(ValueError) as e1:
+        tschedules.make_ddim_timesteps(2000, 1000)
+    with pytest.raises(ValueError) as e2:
+        jschedules.make_ddim_timesteps(2000, 1000)
+    assert str(e1.value) == str(e2.value)
 
 
 def test_seed_rules():
