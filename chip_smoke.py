@@ -11,7 +11,8 @@ and prints no result line):
 2. check that each wrapper refuses malformed CUDA tensors, then hold each
    kernel against its plain PyTorch version on the card, in bf16, at every
    shape the driven paths give it (24-, 125- and 250-frame ModelScope,
-   16-frame VideoCrafter) plus ragged ones; print the max error against the
+   16-frame VideoCrafter, the 16-frame training steps' flash backward) plus
+   ragged ones; print the max error against the
    stated tolerance and the kernel's, the plain version's and, where one
    PyTorch call computes the same function, that library call's time (timed
    here as a yardstick only: the port never calls it);
@@ -32,13 +33,25 @@ and prints no result line):
    tower, 8-head UNet with relative-position temporal attention, SD VAE):
    two requests (16 frames at 256x256, 20 DDIM steps, CFG 9), counted
    launches, and the breakdown of one UNet call. No plain version of a
-   kernel may run on a CUDA tensor in phases 4 and 5;
-6. print the card's name and power limit, one ``{"kernels": [...]}`` line,
+   kernel may run on a CUDA tensor in phases 4 to 6;
+6. training, on the pipelines of phases 4 and 5: hold the gradients of the
+   five kernel ``autograd.Function``s against autograd through the plain
+   versions at one training-path shape each; hold one small LoRA training
+   step in bf16 on the card (loss and gradients) against float32 on the
+   CPU; then train at full width on synthetic clips from a seed (batch 1 x
+   16 frames at 256x256, clips through ``compute_latents``, captions through
+   the text tower): ModelScope LoRA rank 4 for 3 steps, ModelScope full
+   fine-tune with EMA 0.9999 for 2, VideoCrafter full fine-tune for 2. For
+   each, every loss is finite, the trained leaves moved, the pipeline's own
+   weights did not, the EMA follows its rule, and the launch counts equal
+   the topology's (5 flash backward pairs per step); print seconds per
+   step, peak memory, and one profiled step's device time and idle share;
+7. print the card's name and power limit, one ``{"kernels": [...]}`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a GPU, and in a directory without the port.
-``--only kernels|small|modelscope|videocrafter`` runs the build and one
-group of phases (for work on one of them; it prints no result line).
+``--only kernels|small|modelscope|videocrafter|train`` runs the build and
+one group of phases (for work on one of them; it prints no result line).
 """
 
 from __future__ import annotations
@@ -280,6 +293,77 @@ def check_flash(g) -> list[KernelRecord]:
     return [rec]
 
 
+# samples per training step of the full-width runs: the batch that
+# check_flash_bwd sizes its path shapes by
+TRAIN_B = 1
+TRAIN_T = 16      # frames of a training clip
+
+
+def check_flash_bwd(g, fwd: KernelRecord) -> list[KernelRecord]:
+    """The two backward kernels against their plain versions on the same
+    residuals, and the forward's lse output against the plain one (counted
+    under ``fwd``, the forward kernel's record)."""
+    import torch
+    import torch.nn.functional as F
+
+    from t2v_torch.kernels import flash_attention as fa
+
+    src = "t2v_torch/csrc/flash_attention_bwd.cu"
+    dkv = KernelRecord("flash_bwd_dkv", src, "t2v/kernels/flash_attention.py:260",
+                       "modelscope_lora_train")
+    dq = KernelRecord("flash_bwd_dq", src, "t2v/kernels/flash_attention.py:302",
+                      "modelscope_lora_train")
+    # (B, N, S, D, scale): the 32x32 spatial self-attention of one training
+    # step (TRAIN_B x 16 frames x 5 heads of 64 for ModelScope, x 8 heads of 40
+    # for VideoCrafter), the other head dims, and ragged N != S
+    ragged = [(3, 333, 777, 64, 0.125), (3, 333, 777, 40, 40 ** -0.5), (2, 70, 600, 160, 0.1),
+              (2, 600, 70, 80, 80 ** -0.5)]
+    ms_case = (80 * TRAIN_B, 1024, 1024, 64, 0.125)
+    cases = [ms_case, (128 * TRAIN_B, 1024, 1024, 40, 40 ** -0.5),
+             (32, 1024, 1024, 80, 80 ** -0.5), (16, 1024, 1024, 160, 160 ** -0.5), *ragged]
+    for case in cases:
+        b, n, s, d, scale = case
+        q, do = (torch.randn((b, n, d), generator=g, device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn((b, s, d), generator=g, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        label = f"q{(b, n, d)} kv{(b, s, d)}"
+        o, lse = fa.flash_attention_fwd(q, k, v, scale)
+        _, lse_want = fa.flash_attention_fwd_plain(q, k, v, scale)
+        _compare(fwd, f"lse {label}", lse, lse_want)
+        delta = fa.bwd_delta(o, do)
+        got_dk, got_dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+        got_dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
+        want_dk, want_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+        want_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+        torch.cuda.synchronize()
+        _compare(dkv, f"dk {label}", got_dk, want_dk)
+        _compare(dkv, f"dv {label}", got_dv, want_dv)
+        _compare(dq, f"dq {label}", got_dq, want_dq)
+        del got_dk, got_dv, got_dq, want_dk, want_dv, want_dq, lse_want
+        if case in ragged:  # checked, not timed
+            continue
+        args = (q, k, v, do, lse, delta, scale)
+        # the library yardstick: the whole backward (dq, dk and dv) of
+        # scaled_dot_product_attention through autograd, timed alone
+        with torch.enable_grad():
+            q4, k4, v4 = (t[:, None].detach().requires_grad_() for t in (q, k, v))
+            out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do[:, None],
+                                                      retain_graph=True), 10)
+        del out4, q4, k4, v4
+        prod = 2.0 * b * n * s * d
+        in_bytes = 2.0 * b * d * (2 * n + 2 * s) + 8.0 * b * n
+        dkv.timed((b, n, s, d), _time_ms(lambda: fa.flash_attention_bwd_dkv(*args), 10),
+                  _time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args), 3), lib_ms,
+                  4 * prod, in_bytes + 4.0 * b * s * d, main=case == ms_case)
+        dq.timed((b, n, s, d), _time_ms(lambda: fa.flash_attention_bwd_dq(*args), 10),
+                 _time_ms(lambda: fa.flash_attention_bwd_dq_plain(*args), 3), lib_ms,
+                 3 * prod, in_bytes + 2.0 * b * n * d, main=case == ms_case)
+        _release()
+    return [dkv, dq]
+
+
 def check_fused_mha(g) -> list[KernelRecord]:
     import torch
     import torch.nn.functional as F
@@ -423,6 +507,7 @@ def check_refusals() -> None:
     q = bf16(2, 24, 2 * 64)
     rq = bf16(8, 6, 80)  # rel-pos: 2 samples x 4 frames, 6 tokens, 2 heads of 40
     r2 = bf16(4, 4, 40)
+    rows = torch.zeros(2, 8, device="cuda")   # an lse of the right shape
     bad_calls = {
         "temporal_conv float32 x": lambda: temporal_conv.temporal_conv_layer(
             bf16(2, 3, 8, c).float(), fin, vec, vec, w, vec),
@@ -436,6 +521,13 @@ def check_refusals() -> None:
             *(bf16(2, 8, 48) for _ in range(3))),
         "flash strided q": lambda: flash_attention.flash_attention(
             bf16(2, 64, 8).transpose(1, 2), bf16(2, 8, 64), bf16(2, 8, 64)),
+        "flash backward head dim 512": lambda: flash_attention.flash_attention_bwd(
+            *(bf16(2, 8, 512) for _ in range(4)), rows, bf16(2, 8, 512)),
+        "flash backward float32 gradient": lambda: flash_attention.flash_attention_bwd(
+            *(bf16(2, 8, 64) for _ in range(4)), rows, bf16(2, 8, 64).float()),
+        "flash backward lse shape": lambda: flash_attention.flash_attention_bwd(
+            *(bf16(2, 8, 64) for _ in range(4)), torch.zeros(2, 9, device="cuda"),
+            bf16(2, 8, 64)),
         "fused_self_mha float32": lambda: fused_mha.fused_self_mha(q.float(), q.float(), q.float(), 2),
         "fused_self_mha N 512": lambda: fused_mha.fused_self_mha(*(bf16(2, 512, 128),) * 3, 2),
         "fused_self_mha head dim 32": lambda: fused_mha.fused_self_mha(*(bf16(2, 24, 64),) * 3, 2),
@@ -479,7 +571,9 @@ def check_kernels() -> list[KernelRecord]:
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     with torch.no_grad():
-        return [*check_temporal_conv(g), *check_flash(g), *check_fused_mha(g),
+        conv = check_temporal_conv(g)
+        flash = check_flash(g)
+        return [*conv, *flash, *check_flash_bwd(g, flash[0]), *check_fused_mha(g),
                 *check_relpos(g)]
 
 
@@ -505,6 +599,8 @@ def _counters():
     from t2v_torch.kernels import flash_attention, fused_mha, relpos_mha, temporal_conv
 
     return {"temporal_conv": temporal_conv.COUNTER, "flash_attention": flash_attention.COUNTER,
+            "flash_bwd_dkv": flash_attention.DKV_COUNTER,
+            "flash_bwd_dq": flash_attention.DQ_COUNTER,
             "fused_self_mha": fused_mha.COUNTER, "fused_cross_mha": fused_mha.CROSS_COUNTER,
             "relpos_mha": relpos_mha.COUNTER}
 
@@ -523,10 +619,18 @@ def _no_plain_on_cuda():
     """While active, a kernel wrapper's plain version raises when it is
     handed a CUDA tensor: the driven paths must go through the kernels.
     (The dispatch's own short-context attention, ``attention.attention_plain``,
-    is not a wrapper's fallback and is left alone.)"""
+    is not a wrapper's fallback and is left alone; nor are the recompute
+    backwards ``fused_mha_backward``, ``relpos_mha_backward`` and
+    ``chain_backward``, which run plain math on the card by design, as the
+    JAX package's custom VJPs do.)"""
     from t2v_torch.kernels import flash_attention, fused_mha, relpos_mha, temporal_conv
 
-    targets = [(flash_attention, "flash_attention_plain"), (fused_mha, "fused_self_mha_plain"),
+    targets = [(flash_attention, "flash_attention_plain"),
+               (flash_attention, "flash_attention_fwd_plain"),
+               (flash_attention, "flash_attention_bwd_plain"),
+               (flash_attention, "flash_attention_bwd_dkv_plain"),
+               (flash_attention, "flash_attention_bwd_dq_plain"),
+               (fused_mha, "fused_self_mha_plain"),
                (fused_mha, "fused_cross_mha_plain"), (relpos_mha, "relpos_mha_plain"),
                (temporal_conv, "layer_plain")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
@@ -685,15 +789,17 @@ def _expected(per_call: dict, steps: int, decodes: int) -> dict:
     return out
 
 
-def drive_modelscope() -> dict:
-    """Two full-width 24-frame requests, one UNet-call profile, one
-    125-frame request; returns the kernels' launches per path."""
+def drive_modelscope(serve: bool = True, train: bool = True) -> dict:
+    """One full-width ModelScope pipeline. ``serve``: two 24-frame requests,
+    one UNet-call profile, one 125-frame request. ``train``: a LoRA run
+    (rank 4, 3 steps) and a full fine-tune with EMA 0.9999 (2 steps).
+    Returns the kernels' launches per path."""
     import torch
 
     from t2v_torch.core.config import ModelScopeUNetConfig, T2VArgs
     from t2v_torch.core.dtypes import Policy
     from t2v_torch.models.modelscope_unet import count_kernel_sites
-    from t2v_torch.pipeline.pipeline import ModelScopePipeline, decode_chunk_frames
+    from t2v_torch.pipeline.pipeline import ModelScopePipeline
 
     t0 = time.perf_counter()
     pipe = ModelScopePipeline.random_init(ModelScopeUNetConfig(), Policy.bf16(), seed=0,
@@ -703,6 +809,29 @@ def drive_modelscope() -> dict:
     torch.cuda.synchronize()
     print(f"ModelScope pipeline: random_init {time.perf_counter() - t0:.1f} s, UNet "
           f"{n_unet / 1e9:.3f}B params, bf16 on {torch.cuda.get_device_name(0)}", flush=True)
+
+    launches = {}
+    if serve:
+        launches.update(_serve_modelscope(pipe))
+    if train:
+        per_call = count_kernel_sites(pipe.unet_cfg, TRAIN_T, LAT, LAT)
+        launches["modelscope_lora_train"] = _train_run(
+            "ModelScope LoRA rank 4", pipe, per_call, lora_rank=4, ema_decay=None, steps=3,
+            seed=21)
+        launches["modelscope_full_train"] = _train_run(
+            "ModelScope full fine-tune, EMA 0.9999", pipe, per_call, lora_rank=0,
+            ema_decay=0.9999, steps=2, seed=22)
+    del pipe
+    _release()
+    return launches
+
+
+def _serve_modelscope(pipe) -> dict:
+    import torch
+
+    from t2v_torch.core.config import T2VArgs
+    from t2v_torch.models.modelscope_unet import count_kernel_sites
+    from t2v_torch.pipeline.pipeline import decode_chunk_frames
 
     launches = {}
     expected = _expected(count_kernel_sites(pipe.unet_cfg, T, LAT, LAT), STEPS, 1)
@@ -727,14 +856,13 @@ def drive_modelscope() -> dict:
                    frames=T_LONG, width=256, height=256, cfg_scale=CFG)
     launches["modelscope_125f"] = _run_request("ModelScope 125f request", pipe, args, T_LONG,
                                                expected)
-    del pipe
-    _release()
     return launches
 
 
-def drive_videocrafter() -> dict:
-    """Two full-width VideoCrafter requests and one UNet-call profile;
-    returns the kernels' launches in one request."""
+def drive_videocrafter(serve: bool = True, train: bool = True) -> dict:
+    """One full-width VideoCrafter pipeline. ``serve``: two requests and one
+    UNet-call profile. ``train``: a full fine-tune (2 steps). Returns the
+    kernels' launches per path."""
     import torch
 
     from t2v_torch.core.config import T2VArgs
@@ -751,6 +879,25 @@ def drive_videocrafter() -> dict:
           f"{n_unet / 1e9:.3f}B params, CLIP-L {pipe.clip_cfg.layers} layers, bf16 on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
+    launches = {}
+    if serve:
+        launches["videocrafter_16f"] = _serve_videocrafter(pipe)
+    if train:
+        launches["videocrafter_full_train"] = _train_run(
+            "VideoCrafter full fine-tune", pipe,
+            count_vc_kernel_sites(pipe.cfg, TRAIN_T, LAT, LAT), lora_rank=0, ema_decay=None,
+            steps=2, seed=23)
+    del pipe
+    _release()
+    return launches
+
+
+def _serve_videocrafter(pipe) -> dict:
+    import torch
+
+    from t2v_torch.core.config import T2VArgs
+    from t2v_torch.models.videocrafter_unet import count_vc_kernel_sites
+
     expected = _expected(count_vc_kernel_sites(pipe.cfg, VC_T, LAT, LAT), VC_STEPS, 1)
     requests = [
         T2VArgs(prompt="a photo of a cat in the forest", n_prompt="blurry", seed=1234,
@@ -766,14 +913,295 @@ def drive_videocrafter() -> dict:
     g.manual_seed(2)
     ctx = torch.randn((2, 77, pipe.cfg.context_dim), generator=g, device="cuda")
     profile_unet("VideoCrafter", pipe.unet, VC_T, ctx, g)
-    del pipe
+    return launches
+
+
+def _grad_check(label, fn, plain, inputs, g) -> None:
+    """The gradients an autograd.Function returns on the card against
+    autograd through the plain version on the same bf16 inputs."""
+    import torch
+
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    grad_out = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+    got = torch.autograd.grad(out, leaves, grad_out)
+    ref_leaves = [t.detach().requires_grad_() for t in inputs]
+    want = torch.autograd.grad(plain(*ref_leaves), ref_leaves, grad_out)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        err = (a.float() - b.float()).abs().max().item()
+        scale = max(b.float().abs().max().item(), 1e-6)
+        worst = max(worst, err / scale)
+        if not torch.isfinite(a).all() or err > TOL_SHARE * scale:
+            _fail(f"gradient check {label}: input {i} max abs error {err} above "
+                  f"{TOL_SHARE * scale}")
+    print(f"  gradient {label:44s} {len(got)} inputs, worst error {worst:.3e} of max |grad| "
+          f"(limit {TOL_SHARE}) ok", flush=True)
+
+
+def check_gradients() -> None:
+    """Each of the five autograd.Functions at one training-path shape."""
+    import torch
+
+    from t2v_torch.kernels import flash_attention as fa
+    from t2v_torch.kernels import fused_mha as fm
+    from t2v_torch.kernels import relpos_mha as rp
+    from t2v_torch.kernels import temporal_conv as tc
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    bf = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    before = _read_counters()
+    _grad_check("flash (80, 1024, 1024, 64)",
+                lambda q, k, v: fa.FlashAttentionFunction.apply(q, k, v, 0.125),
+                lambda q, k, v: fa.flash_attention_plain(q, k, v, 0.125),
+                [bf(80 * TRAIN_B, 1024, 64) for _ in range(3)], g)
+    _grad_check("fused_self_mha (16, 256, 640) 10 h",
+                lambda q, k, v: fm.FusedSelfMHAFunction.apply(q, k, v, 10, 0.125),
+                lambda q, k, v: fm.fused_self_mha_plain(q, k, v, 10, 0.125),
+                [bf(16 * TRAIN_B, 256, 640) for _ in range(3)], g)
+    _grad_check("fused_cross_mha (1, 16384, 320) x 77, 8 h",
+                lambda q, k, v: fm.FusedCrossMHAFunction.apply(q, k, v, 8, 40 ** -0.5),
+                lambda q, k, v: fm.fused_cross_mha_plain(q, k, v, 8, 40 ** -0.5),
+                [bf(TRAIN_B, 16384, 320), bf(TRAIN_B, 77, 320), bf(TRAIN_B, 77, 320)], g)
+    _grad_check("relpos_mha (16, 1024, 320) 8 h, T = 16",
+                lambda *a: rp.RelposMHAFunction.apply(*a, 8, 16, 40 ** -0.5),
+                lambda *a: rp.relpos_mha_plain(*a, 8, 16, 40 ** -0.5),
+                [*(bf(16 * TRAIN_B, 1024, 320) for _ in range(3)), bf(16, 16, 40),
+                 bf(16, 16, 40)], g)
+    layers = _chain_layers(g, 320)
+    flat = [t for layer in layers for t in layer]
+    regroup = lambda ts: [ts[i:i + 4] for i in range(0, 16, 4)]
+    _grad_check("temporal_conv_chain (1, 16, 1024, 320)",
+                lambda x, *ts: tc.TemporalConvChainFunction.apply(1e-5, x, *ts),
+                lambda x, *ts: tc.chain_plain(x, regroup(ts)),
+                [bf(TRAIN_B, TRAIN_T, 1024, 320), *flat], g)
+    after = _read_counters()
+    moved = {k: after[k] - before[k] for k in after}
+    want = {"temporal_conv": 4, "flash_attention": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1,
+            "fused_self_mha": 1, "fused_cross_mha": 1, "relpos_mha": 1}
+    if moved != want:
+        _fail(f"gradient checks launched {moved}, expected {want}")
     _release()
-    return {"videocrafter_16f": launches}
+
+
+def _lora_loss_and_grads(pipe, lora_np, batch_np, draw_np, device):
+    """One LoRA loss and its gradients on ``pipe`` from numpy inputs."""
+    import numpy as np
+    import torch
+
+    from t2v_torch.parallel import train as T
+    from t2v_torch.pipeline import lora as L
+
+    dev = torch.device(device)
+    index = L.unet_module_index(pipe.unet_cfg)
+    lora = {name: {k: torch.tensor(v, device=dev, requires_grad=True) for k, v in ab.items()}
+            for name, ab in lora_np.items()}
+    base = {k: v.detach() for k, v in pipe.unet.named_parameters()}
+    batch = {k: torch.tensor(v, device=dev) for k, v in batch_np.items()}
+    draw = (torch.tensor(draw_np[0], device=dev), torch.tensor(draw_np[1], device=dev))
+    loss = T.diffusion_loss(T.module_apply_fn(pipe.unet), L.apply_lora(base, lora, index),
+                            T.schedule_tables(pipe.schedule, dev), batch, None, "eps", draw)
+    leaves = T.tree_leaves(lora)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), np.concatenate([g.float().cpu().numpy().ravel() for g in grads])
+
+
+def check_small_training(device: str = "cuda") -> dict:
+    """One LoRA training step's loss and gradients on the small ModelScope
+    UNet: bf16 on ``device`` (the kernels, forward and backward) against
+    float32 on the CPU, with the limit taken from a bf16 CPU run (the plain
+    versions) of the same weights, inputs, timestep and noise."""
+    import numpy as np
+    import torch
+
+    from t2v_torch.core.config import ModelScopeUNetConfig
+    from t2v_torch.core.dtypes import Policy
+    from t2v_torch.pipeline import lora as L
+    from t2v_torch.pipeline.pipeline import ModelScopePipeline
+
+    cfg = ModelScopeUNetConfig(**SMALL_UNET)
+    build = lambda policy, dev: ModelScopePipeline.random_init(cfg, policy, seed=0, device=dev)
+    ref = build(Policy.fp32(), "cpu")
+    _perturb_zero_leaves(ref)
+    rng = np.random.default_rng(11)
+    index = L.unet_module_index(cfg)
+    gen = torch.Generator().manual_seed(11)
+    lora0 = L.init_lora(dict(ref.unet.named_parameters()), index, 4, gen)
+    # B starts at zero, which would zero every gradient of A: give it signal
+    lora_np = {name: {"lora_A": ab["lora_A"].detach().numpy(),
+                      "lora_B": (0.02 * rng.standard_normal(ab["lora_B"].shape)).astype(np.float32)}
+               for name, ab in lora0.items()}
+    batch_np = {"latents": rng.standard_normal((1, 8, 32, 32, 4)).astype(np.float32),
+                "context": rng.standard_normal((1, 77, cfg.context_dim)).astype(np.float32)}
+    draw_np = (np.array([481]), rng.standard_normal((1, 8, 32, 32, 4)).astype(np.float32))
+
+    def copy(policy, dev):
+        pipe = build(policy, dev)
+        for dst, src in zip(_models(pipe), _models(ref)):
+            dst.load_state_dict(src.state_dict())
+        return pipe
+
+    want_loss, want_g = _lora_loss_and_grads(ref, lora_np, batch_np, draw_np, "cpu")
+    cpu_loss, cpu_g = _lora_loss_and_grads(copy(Policy.bf16(), "cpu"), lora_np, batch_np,
+                                           draw_np, "cpu")
+    pipe = copy(Policy.bf16(), device)
+    _reset_counters()
+    with _no_plain_on_cuda():
+        got_loss, got_g = _lora_loss_and_grads(pipe, lora_np, batch_np, draw_np, device)
+    launches = _read_counters()
+
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    # a scalar's bf16 distance can be near zero by chance, so the loss's
+    # limit is never below one bf16 ulp (2^-8) of the reference
+    checks = (("loss", abs(got_loss - want_loss) / abs(want_loss),
+               max(abs(cpu_loss - want_loss) / abs(want_loss), 2.0 ** -8)),
+              ("LoRA gradients", rel(got_g, want_g), rel(cpu_g, want_g)),
+              ("largest LoRA gradient", abs(np.abs(got_g).max() - np.abs(want_g).max())
+               / np.abs(want_g).max(),
+               max(abs(np.abs(cpu_g).max() - np.abs(want_g).max()) / np.abs(want_g).max(),
+                   2.0 ** -8)))
+    for what, err, floor in checks:
+        ok = err <= SMALL_RATIO * floor
+        print(f"small training step {what}: bf16 on {device} {err:.3e} from the float32 "
+              f"reference, bf16 on cpu {floor:.3e}, limit {SMALL_RATIO * floor:.3e} "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            _fail(f"small training step {what}: {err} from the reference, above "
+                  f"{SMALL_RATIO} x {floor}")
+    print(f"small training step: loss {got_loss:.5f} (float32 {want_loss:.5f}), "
+          f"{got_g.size} gradient values, launches on {device}: {launches}", flush=True)
+    return launches
+
+
+def _synthetic_clips(seed: int, n: int):
+    """(n, TRAIN_T, 256, 256, 3) float32 clips in [-1, 1] from a seed:
+    coarse random blocks over a drifting ramp."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    blocks = rng.uniform(-1.0, 1.0, (n, TRAIN_T, 8, 8, 3)).astype(np.float32)
+    blocks = blocks.repeat(32, axis=2).repeat(32, axis=3)
+    ramp = np.linspace(-1.0, 1.0, 256, dtype=np.float32)[None, None, None, :, None]
+    drift = np.linspace(0.0, 0.5, TRAIN_T, dtype=np.float32)[None, :, None, None, None]
+    return np.clip(0.6 * blocks + 0.4 * (ramp + drift), -1.0, 1.0)
+
+
+_CAPTIONS = ("a photo of a cat in the forest", "a bunny on a snowy hill, masterpiece")
+
+
+def _fingerprint(params) -> "torch.Tensor":
+    import torch
+
+    return torch.stack([p.detach().float().sum() for p in params])
+
+
+def _train_run(label, pipe, per_call: dict, *, lora_rank: int, ema_decay, steps: int,
+               seed: int) -> dict:
+    """A few full-width training steps through the entry points a trainer
+    calls: clips -> compute_latents, captions -> the text tower, the train
+    step. Checks every loss, that the trained leaves moved (and, for LoRA,
+    that the frozen base did not), the EMA rule on one leaf, and the launch
+    counts; prints seconds per step (second step on), the peak memory and
+    the idle share of one profiled step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from t2v_torch.parallel import train as T
+    from t2v_torch.pipeline import lora as L
+
+    is_vc = not hasattr(pipe, "text_encoder")
+    unet_cfg = pipe.cfg if is_vc else pipe.unet_cfg
+    dev = pipe.device
+    base = dict(pipe.unet.named_parameters())
+    opt = T.make_optimizer(1e-4, 1e-2)
+    apply_fn = T.module_apply_fn(pipe.unet)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    before_base = _fingerprint(base.values())
+    if lora_rank:
+        index = L.unet_module_index(unet_cfg)
+        state = T.init_train_state(L.init_lora(base, index, lora_rank, gen), opt)
+        step_fn = T.make_lora_train_step(apply_fn, pipe.schedule, base, index,
+                                         parameterization=unet_cfg.parameterization)
+    else:
+        state = T.init_train_state(base, opt, with_ema=ema_decay is not None)
+        step_fn = T.make_train_step(apply_fn, pipe.schedule, ema_decay=ema_decay,
+                                    parameterization=unet_cfg.parameterization)
+    before = _fingerprint(T.tree_leaves(state.params))
+    ema_name = next(iter(state.ema_params)) if state.ema_params is not None else None
+
+    clips = _synthetic_clips(seed, TRAIN_B)
+    captions = [_CAPTIONS[i % len(_CAPTIONS)] for i in range(TRAIN_B)]
+    _reset_counters()
+    losses, times = [], []
+    with _no_plain_on_cuda():
+        latents = torch.cat([pipe.compute_latents(c) for c in clips], dim=0)
+        if is_vc:
+            context = pipe.encode_text(captions)
+        else:
+            context = torch.stack([pipe.text_encoder.encode_line(c) for c in captions])
+        batch = {"latents": latents, "context": context}
+        if not torch.isfinite(latents).all() or latents.std() == 0:
+            _fail(f"{label}: the encoded latents are not finite or carry no signal")
+        for _ in range(steps):
+            if ema_name is not None:
+                ema_old = state.ema_params[ema_name].clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if ema_name is not None:
+                want = ema_old * ema_decay + state.params[ema_name].detach().float() * (1.0 - ema_decay)
+                if not torch.allclose(state.ema_params[ema_name], want, rtol=1e-5, atol=1e-7):
+                    _fail(f"{label}: EMA of {ema_name} is not decay * old + (1 - decay) * new")
+        counts = _read_counters()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # one more step under the profiler: the device's busy time in a step
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, loss = step_fn(state, batch, gen)
+            torch.cuda.synchronize()
+        losses.append(float(loss))
+    kernels = _device_kernels(prof)
+    busy = sum(k[0] for k in kernels) / 1e3
+    n_kernels = sum(k[1] for k in kernels)
+
+    enc_chunks = TRAIN_B * -(-TRAIN_T // 8)
+    expected = {k: 0 for k in _counters()}
+    expected.update({k: steps * v for k, v in per_call.items()})
+    flash_sites = per_call["flash_attention"]
+    expected["flash_attention"] += enc_chunks  # the VAE encoder's mid-block attention
+    expected["flash_bwd_dkv"] = expected["flash_bwd_dq"] = steps * flash_sites
+    steady = sum(times[1:]) / max(1, len(times) - 1)
+    idle = f"{100 * (1 - busy / steady):.0f}%" if busy else "not measured"
+    print(f"{label}: batch {TRAIN_B} x {TRAIN_T} frames, losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; first step {times[0]:.3f} s, then "
+          f"{steady:.3f} s/step; peak {peak:.2f} GiB; one profiled step: {busy:.3f} s of "
+          f"device time in {n_kernels} kernels, idle {idle} of a step; launches {counts}",
+          flush=True)
+    if busy:
+        _print_breakdown(kernels, 1e3 * busy, top=4)
+    if not all(math.isfinite(x) for x in losses):
+        _fail(f"{label}: a loss is not finite: {losses}")
+    after = _fingerprint(T.tree_leaves(state.params))
+    if not torch.isfinite(after).all() or torch.equal(before, after):
+        _fail(f"{label}: the trained parameters did not change, or are not finite")
+    if not torch.equal(before_base, _fingerprint(base.values())):
+        _fail(f"{label}: the pipeline's own weights (the frozen base of a LoRA run) changed")
+    if counts != expected:
+        _fail(f"{label}: launch counts {counts} differ from the topology's {expected}")
+    del state, step_fn, batch
+    _release()
+    return counts
 
 
 _CATEGORIES = (
     ("temporal_conv kernel", ("temporal_conv_layer_kernel",)),
     ("flash_attention kernel", ("flash_fwd_kernel",)),
+    ("flash backward kernels", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("fused_self_mha kernel", ("packed_mha_kernel",)),
     ("fused_cross_mha kernel", ("cross_mha_kernel",)),
     ("relpos_mha kernel", ("relpos_mha_kernel",)),
@@ -787,7 +1215,6 @@ def profile_unet(label, unet, frames, ctx, g) -> None:
     request's latent, timed with CUDA events, then once under
     torch.profiler with its kernels' device time summed by category."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     x = torch.randn((2, frames, LAT, LAT, 4), generator=g, device="cuda")
@@ -797,8 +1224,7 @@ def profile_unet(label, unet, frames, ctx, g) -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             unet(x, t, ctx)
             torch.cuda.synchronize()
-    kernels = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = _device_kernels(prof)
     busy = sum(k[0] for k in kernels)
     n_launch = sum(k[1] for k in kernels)
     print(f"profile {label}: one UNet call (2 x {frames} frames, {LAT}x{LAT} latent) {ms:.2f} "
@@ -807,6 +1233,23 @@ def profile_unet(label, unet, frames, ctx, g) -> None:
     if busy == 0:
         print(f"profile {label}: the profiler recorded no device time (breakdown not measured)")
         return
+    _print_breakdown(kernels, busy)
+
+
+def _device_kernels(prof) -> list:
+    """(device ms, count, name) of every kernel a profile recorded. Ranges
+    that annotate a span of kernels (``Optimizer.step#AdamW.step``) carry
+    their kernels' time a second time and are left out."""
+    from torch.autograd import DeviceType
+
+    return [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
+
+
+def _print_breakdown(kernels, busy: float, top: int = 10) -> None:
+    """(device ms, count, name) kernel rows summed by category."""
     sums: dict[str, list] = {}
     for dev_ms, count, name in kernels:
         low = name.lower()
@@ -817,13 +1260,14 @@ def profile_unet(label, unet, frames, ctx, g) -> None:
         entry[1] += count
     for cat, (dev_ms, count) in sorted(sums.items(), key=lambda kv: -kv[1][0]):
         print(f"  {cat:28s} {dev_ms:8.2f} ms  {100 * dev_ms / busy:5.1f}%  x{count}")
-    for dev_ms, count, name in sorted(kernels, reverse=True)[:10]:
+    for dev_ms, count, name in sorted(kernels, reverse=True)[:top]:
         print(f"  top {dev_ms:8.2f} ms x{count:<4d} {name[:110]}")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=("kernels", "small", "modelscope", "videocrafter"),
+    parser.add_argument("--only", choices=("kernels", "small", "modelscope", "videocrafter",
+                                           "train"),
                         help="run the build and one group of phases; prints no result line")
     only = parser.parse_args().only
     try:
@@ -856,11 +1300,20 @@ def main() -> int:
                                       "relpos_mha")):
             _fail(f"the small VideoCrafter pipeline did not run every kernel of its path: {small}")
         print(f"small pipelines done at {time.perf_counter() - t_start:.0f} s", flush=True)
-    if only in (None, "modelscope"):
-        launches.update(drive_modelscope())
+    if only in (None, "train"):
+        check_gradients()
+        small = check_small_training()
+        if not all(small[k] for k in ("temporal_conv", "flash_attention", "flash_bwd_dkv",
+                                      "flash_bwd_dq", "fused_self_mha")):
+            _fail(f"the small training step did not run every kernel of its path: {small}")
+        print(f"gradient checks and small training step done at "
+              f"{time.perf_counter() - t_start:.0f} s", flush=True)
+    serve, train = only is None, only in (None, "train")
+    if only in (None, "modelscope", "train"):
+        launches.update(drive_modelscope(serve or only == "modelscope", train))
         print(f"ModelScope done at {time.perf_counter() - t_start:.0f} s", flush=True)
-    if only in (None, "videocrafter"):
-        launches.update(drive_videocrafter())
+    if only in (None, "videocrafter", "train"):
+        launches.update(drive_videocrafter(serve or only == "videocrafter", train))
         print(f"VideoCrafter done at {time.perf_counter() - t_start:.0f} s", flush=True)
 
     smi = subprocess.run(

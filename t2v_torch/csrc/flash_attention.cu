@@ -1,7 +1,9 @@
 // Flash attention forward over head-folded (B, N, D) queries and (B, S, D)
 // keys/values: online softmax over key/value tiles with an f32 running
 // max, sum and accumulator; key columns >= S are masked and a row whose sum
-// stays 0 is guarded against 0/0.
+// stays 0 is guarded against 0/0. With a non-null ``lse`` it also writes the
+// f32 log-sum-exp of each row's scaled scores (max + log sum), the residual
+// the backward kernels (flash_attention_bwd.cu) recompute p from.
 //
 // Replaces: t2v/kernels/flash_attention.py::_flash_kernel (driven by
 // flash_attention / _flash_call; the VAE mid-block attention reaches it
@@ -62,7 +64,7 @@ struct FlashSmem {
 template <int D, int BQ, int BKV>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int N, int S, int d, float scale) {
+    bf16* __restrict__ o, float* __restrict__ lse, int N, int S, int d, float scale) {
   using L = FlashSmem<D, BQ, BKV>;
   constexpr int TPR = NT / BQ;  // threads per softmax row
   constexpr int CPT = BKV / TPR;  // columns per thread
@@ -200,11 +202,15 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       o[bq + (size_t)(q0 + r) * d + c] = __float2bfloat16(Os[r * L::LDO + c] / safe);
     }
   }
+  if (lse != nullptr) {
+    for (int r = tid; r < BQ; r += NT)
+      if (q0 + r < N) lse[(size_t)blockIdx.y * N + q0 + r] = m_s[r] + logf(l_s[r]);
+  }
 }
 
 template <int D, int BQ, int BKV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int N, int S, int d,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int N, int S,
+           int d, float scale, cudaStream_t stream) {
   constexpr int bytes = FlashSmem<D, BQ, BKV>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, BQ, BKV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -212,23 +218,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int N, i
   const dim3 grid((N + BQ - 1) / BQ, B);
   flash_fwd_kernel<D, BQ, BKV><<<grid, NT, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), N, S, d, scale);
+      static_cast<bf16*>(o), static_cast<float*>(lse), N, S, d, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // returns a CUDA error code; 1 (cudaErrorInvalidValue) for an unsupported
-// head dim (not a multiple of 8, or above 160 and not 512)
+// head dim (not a multiple of 8, or above 160 and not 512). ``lse`` is null
+// or a (B, N) f32 buffer.
 extern "C" int t2v_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                       int B, int N, int S, int D, float scale,
+                                       void* lse, int B, int N, int S, int D, float scale,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 48) return launch<48, 64, 64>(q, k, v, o, B, N, S, D, scale, st);
-  if (D <= 64) return launch<64, 64, 64>(q, k, v, o, B, N, S, D, scale, st);
-  if (D <= 80) return launch<80, 64, 64>(q, k, v, o, B, N, S, D, scale, st);
-  if (D <= 160) return launch<160, 64, 64>(q, k, v, o, B, N, S, D, scale, st);
-  if (D == 512) return launch<512, 16, 32>(q, k, v, o, B, N, S, D, scale, st);
+  if (D <= 48) return launch<48, 64, 64>(q, k, v, o, lse, B, N, S, D, scale, st);
+  if (D <= 64) return launch<64, 64, 64>(q, k, v, o, lse, B, N, S, D, scale, st);
+  if (D <= 80) return launch<80, 64, 64>(q, k, v, o, lse, B, N, S, D, scale, st);
+  if (D <= 160) return launch<160, 64, 64>(q, k, v, o, lse, B, N, S, D, scale, st);
+  if (D == 512) return launch<512, 16, 32>(q, k, v, o, lse, B, N, S, D, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

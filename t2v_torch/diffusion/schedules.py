@@ -74,6 +74,16 @@ class DiffusionSchedule:
         return self._alphas_cumprod64.astype(np.float32)
 
     @property
+    def sqrt_alphas_cumprod(self) -> np.ndarray:
+        """q-sample signal coefficient (the training step reads it)."""
+        return np.sqrt(self._alphas_cumprod64).astype(np.float32)
+
+    @property
+    def sqrt_one_minus_alphas_cumprod(self) -> np.ndarray:
+        """q-sample noise coefficient."""
+        return np.sqrt(1.0 - self._alphas_cumprod64).astype(np.float32)
+
+    @property
     def sqrt_recip_alphas_cumprod(self) -> np.ndarray:
         return np.sqrt(1.0 / self._alphas_cumprod64).astype(np.float32)
 

@@ -210,10 +210,8 @@ def _vae_attn(sd: dict, p: str, t: Tree) -> None:
 
 
 def from_jax_vae(params: Tree, cfg: VAEConfig) -> dict[str, np.ndarray]:
-    """JAX ``AutoencoderKL`` parameters -> reference VAE state dict (the
-    encoder's keys included, so the JAX converter round-trips; the port's
-    decoder-only module loads the ``decoder.*`` and ``post_quant_conv.*``
-    keys)."""
+    """JAX ``AutoencoderKL`` parameters -> reference VAE state dict:
+    encoder, ``quant_conv``, decoder and ``post_quant_conv``."""
     t = _unwrap(params)
     sd: dict[str, np.ndarray] = {}
     nm = len(cfg.ch_mult)
@@ -288,6 +286,28 @@ def from_jax_clip(params: Tree, cfg: CLIPTextConfig, layout: str = "open_clip") 
         _linear(sd, f"{tp}.mlp.c_fc", b["c_fc"])
         _linear(sd, f"{tp}.mlp.c_proj", b["c_proj"])
     return sd
+
+
+def lora_from_jax(tree: Mapping[str, Mapping[str, Any]], device="cpu") -> dict:
+    """A JAX LoRA tree (``{name: {"lora_A" (in, r), "lora_B" (r, out)[,
+    "scale", "diag"]}}``, numpy leaves) -> the port's: the same names and
+    layouts (the port's merge transposes the (in, out) delta onto the
+    ``nn.Linear`` weight), float32 tensors that ask for gradients."""
+    def leaf(k, v):
+        if np.ndim(v) == 0:
+            return float(v)
+        return torch.tensor(np.asarray(v, np.float32), device=device,
+                            requires_grad=k in ("lora_A", "lora_B"))
+
+    return {name: {k: leaf(k, v) for k, v in ab.items()} for name, ab in tree.items()}
+
+
+def lora_to_jax(lora: Mapping[str, Mapping[str, Any]]) -> dict:
+    """The port's LoRA tree -> the JAX package's, numpy float32 leaves."""
+    def leaf(v):
+        return v.detach().float().cpu().numpy() if torch.is_tensor(v) else np.float32(v)
+
+    return {name: {k: leaf(v) for k, v in ab.items()} for name, ab in lora.items()}
 
 
 def load_into(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> torch.nn.Module:

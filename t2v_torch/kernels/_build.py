@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 )
 
 # every csrc/<name>.cu the main path launches
-KERNELS = ("temporal_conv", "flash_attention", "fused_mha", "relpos_mha")
+KERNELS = ("temporal_conv", "flash_attention", "flash_attention_bwd", "fused_mha", "relpos_mha")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -141,3 +141,28 @@ def require(cond: bool, what: str) -> None:
     """Validation of a CUDA tensor handed to a kernel wrapper."""
     if not cond:
         raise ValueError(what)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether a wrapper must run as its ``autograd.Function``: autograd is
+    recording and one of the tensors asks for a gradient."""
+    import torch
+
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def recompute_grads(fn, inputs, grad_out, needs):
+    """Gradients of ``fn(*inputs)`` for the inputs flagged in ``needs``,
+    by running ``fn`` again under autograd on detached copies: the backward
+    of a kernel whose TPU counterpart also recomputes through its plain
+    version. Returns one entry per input, None where none is needed."""
+    import torch
+
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) if isinstance(t, torch.Tensor) else t
+                  for t, n in zip(inputs, needs)]
+        out = fn(*leaves)
+        wanted = [t for t, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out, allow_unused=True))
+    return tuple(next(grads) if n else None for n in needs)

@@ -12,6 +12,12 @@
   context k/v (B, S, H·D): on a CUDA tensor S < ``FLASH_MIN_KV`` goes to
   the packed cross-attention kernel, longer contexts fold and go to flash;
   CPU tensors take the plain path.
+
+Every entry is differentiable: a CUDA tensor that needs a gradient runs the
+same kernel as the forward of its ``torch.autograd.Function`` (flash
+attention's backward is the two backward kernels, the packed kernels'
+recomputes through the plain math); tensors that need none launch what they
+always launched.
 """
 
 from __future__ import annotations

@@ -11,6 +11,13 @@ emit them. On a CUDA tensor these launch ``csrc/fused_mha.cu`` (bf16, head
 dim 40, 64, 80 or 160); on a CPU tensor they run ``fused_self_mha_plain``
 and ``fused_cross_mha_plain``, which fold the heads and run dot-product
 attention with an f32 softmax.
+
+Both are differentiable. On a CUDA tensor that needs a gradient they run as
+``FusedSelfMHAFunction`` / ``FusedCrossMHAFunction``: the forward launches
+the kernel, the backward (``fused_mha_backward``) recomputes through the
+folded dot-product math, as the JAX package's ``custom_vjp`` recomputes
+through its XLA reference (sequences are short, so the score matrix is
+cheap to rebuild).
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ MAX_N = 512
 CROSS_WHOLE_KV = 128
 
 
-def fused_cross_mha_plain(q, k, v, heads: int, scale: float | None = None) -> torch.Tensor:
+def _folded_attention(q, k, v, heads: int, scale: float | None) -> torch.Tensor:
+    """Fold the heads, dot-product attention, unfold: the math of both plain
+    versions and of the recompute backward."""
     b, n, hd = q.shape
     s = k.shape[1]
     dh = hd // heads
@@ -40,8 +49,20 @@ def fused_cross_mha_plain(q, k, v, heads: int, scale: float | None = None) -> to
     return out.reshape(b, heads, n, dh).transpose(1, 2).reshape(b, n, hd)
 
 
+def fused_cross_mha_plain(q, k, v, heads: int, scale: float | None = None) -> torch.Tensor:
+    return _folded_attention(q, k, v, heads, scale)
+
+
 def fused_self_mha_plain(q, k, v, heads: int, scale: float | None = None) -> torch.Tensor:
-    return fused_cross_mha_plain(q, k, v, heads, scale)
+    return _folded_attention(q, k, v, heads, scale)
+
+
+def fused_mha_backward(q, k, v, heads: int, scale: float | None, grad_out,
+                       needs=(True, True, True)):
+    """(dq, dk, dv) of either packed attention by recompute through the
+    folded dot-product math under autograd."""
+    return _build.recompute_grads(
+        lambda a, b, c: _folded_attention(a, b, c, heads, scale), (q, k, v), grad_out, needs)
 
 
 def _check_common(what: str, q, k, v, heads: int) -> None:
@@ -102,10 +123,49 @@ def _cross_cuda(q, k, v, heads: int, scale: float) -> torch.Tensor:
     return o
 
 
+class _PackedMHAFunction(torch.autograd.Function):
+    """``apply(q, k, v, heads, scale)``: the kernel forward (the plain
+    version for CPU tensors), the recompute backward."""
+
+    @staticmethod
+    def _run(q, k, v, heads, scale):
+        raise NotImplementedError
+
+    @classmethod
+    def forward(cls, ctx, q, k, v, heads, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads, ctx.scale = heads, scale
+        return cls._run(q, k, v, heads, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        return (*fused_mha_backward(q, k, v, ctx.heads, ctx.scale, grad_out,
+                                    ctx.needs_input_grad[:3]), None, None)
+
+
+class FusedSelfMHAFunction(_PackedMHAFunction):
+    @staticmethod
+    def _run(q, k, v, heads, scale):
+        if q.is_cuda:
+            return _self_cuda(q, k, v, heads, scale)
+        return fused_self_mha_plain(q, k, v, heads, scale)
+
+
+class FusedCrossMHAFunction(_PackedMHAFunction):
+    @staticmethod
+    def _run(q, k, v, heads, scale):
+        if q.is_cuda:
+            return _cross_cuda(q, k, v, heads, scale)
+        return fused_cross_mha_plain(q, k, v, heads, scale)
+
+
 def fused_self_mha(q, k, v, heads: int, scale: float | None = None) -> torch.Tensor:
     if scale is None:
         scale = (q.shape[-1] // heads) ** -0.5
     if q.is_cuda:
+        if _build.needs_grad(q, k, v):
+            return FusedSelfMHAFunction.apply(q, k, v, heads, scale)
         return _self_cuda(q, k, v, heads, scale)
     return fused_self_mha_plain(q, k, v, heads, scale)
 
@@ -114,5 +174,7 @@ def fused_cross_mha(q, k, v, heads: int, scale: float | None = None) -> torch.Te
     if scale is None:
         scale = (q.shape[-1] // heads) ** -0.5
     if q.is_cuda:
+        if _build.needs_grad(q, k, v):
+            return FusedCrossMHAFunction.apply(q, k, v, heads, scale)
         return _cross_cuda(q, k, v, heads, scale)
     return fused_cross_mha_plain(q, k, v, heads, scale)

@@ -12,6 +12,12 @@ launches ``csrc/relpos_mha.cu`` (bf16); on a CPU tensor it runs
 ``relpos_mha_plain``, the fold-and-einsum math of the JAX package's
 ``relpos_ref``, with the softmax and both products in float32 and the
 probabilities rounded to v's dtype before the output products.
+
+``relpos_mha`` is differentiable. On a CUDA tensor that needs a gradient it
+runs as ``RelposMHAFunction``: the forward launches the kernel, the backward
+(``relpos_mha_backward``) recomputes through the fold-and-einsum math and
+returns gradients for q, k, v, K2 and V2, as the JAX package's
+``custom_vjp`` recomputes through ``relpos_ref``.
 """
 
 from __future__ import annotations
@@ -26,8 +32,10 @@ COUNTER = _build.LaunchCounter()
 MAX_T = 64
 
 
-def relpos_mha_plain(q, k, v, k2, v2, heads: int, frame_split: int,
-                     scale: float | None = None) -> torch.Tensor:
+def _relpos_math(q, k, v, k2, v2, heads: int, frame_split: int,
+                 scale: float | None) -> torch.Tensor:
+    """The fold-and-einsum math of the plain version and of the recompute
+    backward."""
     bt, n, hd = q.shape
     t = frame_split
     bb = bt // t
@@ -44,6 +52,20 @@ def relpos_mha_plain(q, k, v, k2, v2, heads: int, frame_split: int,
     out = torch.einsum("bij,bjd->bid", attn, vf) + torch.einsum("bts,tsd->btd", attn, v2f)
     out = out.to(v.dtype)
     return out.reshape(bb, n, heads, t, dh).permute(0, 3, 1, 2, 4).reshape(bt, n, hd)
+
+
+def relpos_mha_plain(q, k, v, k2, v2, heads: int, frame_split: int,
+                     scale: float | None = None) -> torch.Tensor:
+    return _relpos_math(q, k, v, k2, v2, heads, frame_split, scale)
+
+
+def relpos_mha_backward(q, k, v, k2, v2, heads: int, frame_split: int, scale: float | None,
+                        grad_out, needs=(True,) * 5):
+    """(dq, dk, dv, dK2, dV2) by recompute through the fold-and-einsum math
+    under autograd."""
+    return _build.recompute_grads(
+        lambda *a: _relpos_math(*a, heads, frame_split, scale), (q, k, v, k2, v2), grad_out,
+        needs)
 
 
 def check_args(q, k, v, k2, v2, heads: int, frame_split: int) -> None:
@@ -82,10 +104,31 @@ def _relpos_cuda(q, k, v, k2, v2, heads: int, frame_split: int, scale: float) ->
     return o
 
 
+class RelposMHAFunction(torch.autograd.Function):
+    """``apply(q, k, v, k2, v2, heads, frame_split, scale)``: the kernel
+    forward (the plain version for CPU tensors), the recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k2, v2, heads, frame_split, scale):
+        ctx.save_for_backward(q, k, v, k2, v2)
+        ctx.static = (heads, frame_split, scale)
+        if q.is_cuda:
+            return _relpos_cuda(q, k, v, k2, v2, heads, frame_split, scale)
+        return relpos_mha_plain(q, k, v, k2, v2, heads, frame_split, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = relpos_mha_backward(*ctx.saved_tensors, *ctx.static, grad_out,
+                                    ctx.needs_input_grad[:5])
+        return (*grads, None, None, None)
+
+
 def relpos_mha(q, k, v, k2, v2, heads: int, frame_split: int,
                scale: float | None = None) -> torch.Tensor:
     if scale is None:
         scale = (q.shape[-1] // heads) ** -0.5
     if q.is_cuda:
+        if _build.needs_grad(q, k, v, k2, v2):
+            return RelposMHAFunction.apply(q, k, v, k2, v2, heads, frame_split, scale)
         return _relpos_cuda(q, k, v, k2, v2, heads, frame_split, scale)
     return relpos_mha_plain(q, k, v, k2, v2, heads, frame_split, scale)

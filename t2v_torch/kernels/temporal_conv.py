@@ -17,6 +17,13 @@ any frame count (the JAX package needs a second, frame-chunked kernel for
 statistics are finalised over every tile, so they stay global and exact);
 on a CPU tensor it is ``layer_plain``. The O(B*C) statistics glue
 (``input_stats``, ``finalize_stats``) is plain torch on both.
+
+``temporal_conv_chain`` is differentiable. On a CUDA tensor that needs a
+gradient it runs as ``TemporalConvChainFunction``: the forward launches the
+four layer kernels, the backward (``chain_backward``) recomputes the chain
+through the plain layer math and returns gradients for x and all sixteen
+layer tensors, as the JAX package's ``custom_vjp`` recomputes through
+``chain_ref``.
 """
 
 from __future__ import annotations
@@ -42,12 +49,12 @@ def input_stats(x: torch.Tensor) -> torch.Tensor:
     f32 over frame chunks so that a long video is never upcast whole."""
     b, f, hw, c = x.shape
     step = max(1, STATS_CHUNK_ELEMENTS // max(1, b * hw * c))
-    out = torch.zeros((b, 2, c), device=x.device, dtype=torch.float32)
+    s1 = s2 = None
     for f0 in range(0, f, step):
         x32 = x[:, f0 : f0 + step].float()
-        out[:, 0] += x32.sum(dim=(1, 2))
-        out[:, 1] += (x32 * x32).sum(dim=(1, 2))
-    return out
+        c1, c2 = x32.sum(dim=(1, 2)), (x32 * x32).sum(dim=(1, 2))
+        s1, s2 = (c1, c2) if s1 is None else (s1 + c1, s2 + c2)
+    return torch.stack([s1, s2], dim=1)
 
 
 def finalize_stats(raw: torch.Tensor, n_el: int, eps: float) -> torch.Tensor:
@@ -65,12 +72,9 @@ def finalize_stats(raw: torch.Tensor, n_el: int, eps: float) -> torch.Tensor:
     )
 
 
-def layer_plain(
-    x: torch.Tensor, fin: torch.Tensor, scale, bias, w, cb,
-    residual: torch.Tensor | None = None, emit_stats: bool = True,
-):
-    """Plain PyTorch version of one layer: returns ``(y, raw_stats)``, with
-    ``raw_stats`` None when ``emit_stats`` is false."""
+def _layer_math(x, fin, scale, bias, w, cb, residual, emit_stats):
+    """One layer in plain torch: the math of ``layer_plain`` and of the
+    chain's recompute backward."""
     b, f, hw, c = x.shape
     mu = fin[:, 0].reshape(b, 1, 1, c)
     inv = fin[:, 1].reshape(b, 1, 1, c)
@@ -85,6 +89,15 @@ def layer_plain(
     if not emit_stats:
         return y, None
     return y, input_stats(y)
+
+
+def layer_plain(
+    x: torch.Tensor, fin: torch.Tensor, scale, bias, w, cb,
+    residual: torch.Tensor | None = None, emit_stats: bool = True,
+):
+    """Plain PyTorch version of one layer: returns ``(y, raw_stats)``, with
+    ``raw_stats`` None when ``emit_stats`` is false."""
+    return _layer_math(x, fin, scale, bias, w, cb, residual, emit_stats)
 
 
 def check_layer_args(x, fin, scale, bias, w, cb, residual=None) -> None:
@@ -151,18 +164,60 @@ def temporal_conv_layer(
 def chain_plain(x: torch.Tensor, layers, eps: float = 1e-5) -> torch.Tensor:
     """Plain PyTorch version of the whole chain, statistics recomputed from
     each layer's output (the JAX package's ``chain_ref``)."""
+    return _chain_math(x, layers, eps)
+
+
+def _chain_math(x, layers, eps: float) -> torch.Tensor:
     h = x
     n_el = x.shape[1] * x.shape[2]
     for scale, bias, w, cb in layers:
         fin = finalize_stats(input_stats(h), n_el, eps)
-        h, _ = layer_plain(h, fin, scale, bias, w, cb, emit_stats=False)
+        h, _ = _layer_math(h, fin, scale, bias, w, cb, None, False)
     return x + h
+
+
+def chain_backward(x, layers, eps: float, grad_out, needs=None):
+    """Gradients of the chain for ``x`` and the flattened layer tensors
+    (scale, bias, w, conv bias of each layer, in order), by recompute
+    through the plain layer math under autograd. ``needs`` flags which of
+    the 1 + 4 * len(layers) inputs want one (default: all)."""
+    flat = [x, *(t for layer in layers for t in layer)]
+    needs = tuple(needs) if needs is not None else (True,) * len(flat)
+
+    def fn(xx, *ts):
+        return _chain_math(xx, [ts[i : i + 4] for i in range(0, len(ts), 4)], eps)
+
+    return _build.recompute_grads(fn, flat, grad_out, needs)
+
+
+class TemporalConvChainFunction(torch.autograd.Function):
+    """``apply(eps, x, *layer_tensors)``: the chain's forward (kernels for a
+    CUDA tensor), the recompute backward."""
+
+    @staticmethod
+    def forward(ctx, eps, x, *flat):
+        ctx.save_for_backward(x, *flat)
+        ctx.eps = eps
+        return _chain_forward(x, [flat[i : i + 4] for i in range(0, len(flat), 4)], eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, *flat = ctx.saved_tensors
+        layers = [flat[i : i + 4] for i in range(0, len(flat), 4)]
+        return (None, *chain_backward(x, layers, ctx.eps, grad_out, ctx.needs_input_grad[1:]))
 
 
 def temporal_conv_chain(x: torch.Tensor, layers, eps: float = 1e-5) -> torch.Tensor:
     """The fused TemporalConvBlock: identity + four GN->SiLU->conv layers,
     each layer's GroupNorm statistics taken from the previous layer's
     epilogue. Returns a tensor of x's shape and dtype."""
+    flat = [t for layer in layers for t in layer]
+    if x.is_cuda and _build.needs_grad(x, *flat):
+        return TemporalConvChainFunction.apply(eps, x, *flat)
+    return _chain_forward(x, layers, eps)
+
+
+def _chain_forward(x: torch.Tensor, layers, eps: float) -> torch.Tensor:
     n_el = x.shape[1] * x.shape[2]
     raw = input_stats(x)
     h = x

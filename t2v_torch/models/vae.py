@@ -1,13 +1,18 @@
-"""KL-VAE decoder (the SD "VQGAN_autoencoder.pth" first-stage model) in
-PyTorch: the decode path of the JAX package's ``models/vae.py``.
+"""KL-VAE (the SD "VQGAN_autoencoder.pth" first-stage model) in PyTorch:
+the port of the JAX package's ``models/vae.py``, encoder and decoder.
 
 Frames are one channels-last ``(B·F, H, W, C)`` batch. Parameters carry the
-reference state-dict names (``decoder.mid.attn_1.q.weight``,
-``decoder.up.3.block.0.conv1.weight``, ``post_quant_conv.weight`` …). The
-encoder (vid2vid) is not part of this module yet.
+reference state-dict names (``encoder.down.0.block.0.conv1.weight``,
+``decoder.mid.attn_1.q.weight``, ``quant_conv.weight``,
+``post_quant_conv.weight`` …). ``encode`` returns the posterior's (mean,
+logvar) with the logvar clipped to [-30, 20]; ``DiagonalGaussian`` wraps the
+pair for sample / kl / nll / mode; ``encode_latents`` is the training
+path's deterministic encode (posterior mean x latent scale, float32).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +82,17 @@ class Upsample(nn.Module):
         return self.conv(x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2))
 
 
+class Downsample(nn.Module):
+    """Stride-2 conv3x3 after SD's asymmetric (0, 1) x (0, 1) padding."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=0)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+
+
 class _Mid(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
@@ -93,6 +109,47 @@ class _UpLevel(nn.Module):
         )
         self.attn = nn.ModuleList()
         self.upsample = Upsample(block_out) if upsample else None
+
+
+class _DownLevel(nn.Module):
+    def __init__(self, block_in: int, block_out: int, n_blocks: int, downsample: bool):
+        super().__init__()
+        self.block = nn.ModuleList(
+            [ResnetBlock(block_in if j == 0 else block_out, block_out) for j in range(n_blocks)]
+        )
+        self.attn = nn.ModuleList()
+        self.downsample = Downsample(block_out) if downsample else None
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        nm = len(cfg.ch_mult)
+        if cfg.attn_resolutions:
+            raise NotImplementedError("VAE attention at down-block resolutions")
+        self.conv_in = Conv2d(cfg.in_channels, cfg.ch, 3, padding=1)
+        block_in = cfg.ch
+        levels = []
+        for i, mult in enumerate(cfg.ch_mult):
+            block_out = cfg.ch * mult
+            levels.append(_DownLevel(block_in, block_out, cfg.num_res_blocks, i != nm - 1))
+            block_in = block_out
+        self.down = nn.ModuleList(levels)
+        self.mid = _Mid(block_in)
+        self.norm_out = Normalize(block_in)
+        out_ch = cfg.z_channels * (2 if cfg.double_z else 1)
+        self.conv_out = Conv2d(block_in, out_ch, 3, padding=1)
+
+    def forward(self, x):
+        h = self.conv_in(x.to(self.conv_in.weight.dtype))
+        for level in self.down:
+            for block in level.block:
+                h = block(h)
+            if level.downsample is not None:
+                h = level.downsample(h)
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
+        return self.conv_out(F.silu(self.norm_out(h)))
 
 
 class Decoder(nn.Module):
@@ -126,15 +183,69 @@ class Decoder(nn.Module):
         return self.conv_out(F.silu(self.norm_out(h)))
 
 
+class DiagonalGaussian:
+    """Diagonal-Gaussian posterior over latents: sample / kl / nll / mode on
+    a channels-last (mean, logvar) pair, the logvar clipped to [-30, 20] by
+    ``AutoencoderKL.encode``. ``deterministic=True`` zeroes the variance."""
+
+    def __init__(self, mean, logvar, deterministic: bool = False):
+        self.mean = mean
+        self.logvar = logvar
+        self.deterministic = deterministic
+        if deterministic:
+            self.var = self.std = torch.zeros_like(mean)
+        else:
+            self.std = torch.exp(0.5 * logvar)
+            self.var = torch.exp(logvar)
+
+    def sample(self, generator: torch.Generator | None = None, noise=None):
+        if self.deterministic:
+            return self.mean
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
+                                dtype=self.mean.dtype)
+        return self.mean + self.std * noise
+
+    def kl(self, other: "DiagonalGaussian | None" = None):
+        """KL to N(0, I) or to another diagonal Gaussian, summed over every
+        axis but the batch."""
+        if self.deterministic:
+            return self.mean.new_zeros((self.mean.shape[0],))
+        axes = tuple(range(1, self.mean.dim()))
+        if other is None:
+            return 0.5 * torch.sum(self.mean ** 2 + self.var - 1.0 - self.logvar, dim=axes)
+        return 0.5 * torch.sum(
+            (self.mean - other.mean) ** 2 / other.var + self.var / other.var - 1.0
+            - self.logvar + other.logvar, dim=axes)
+
+    def nll(self, sample):
+        if self.deterministic:
+            return self.mean.new_zeros((self.mean.shape[0],))
+        axes = tuple(range(1, self.mean.dim()))
+        return 0.5 * torch.sum(
+            math.log(2.0 * math.pi) + self.logvar + (sample - self.mean) ** 2 / self.var,
+            dim=axes)
+
+    def mode(self):
+        return self.mean
+
+
 class AutoencoderKL(nn.Module):
-    """decode(z) -> rgb, channels-last, z unscaled (the caller divides by
-    the latent scale factor)."""
+    """encode(x) -> (mean, logvar); decode(z) -> rgb. Channels-last, x in
+    [-1, 1], z unscaled (the caller divides by the latent scale factor)."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
         self.decoder = Decoder(cfg)
         self.post_quant_conv = Conv2d(cfg.embed_dim, cfg.z_channels, 1)
+        self.encoder = Encoder(cfg)
+        self.quant_conv = Conv2d(2 * cfg.z_channels, 2 * cfg.embed_dim, 1)
+
+    def encode(self, x):
+        moments = self.quant_conv(self.encoder(x))
+        mean, logvar = moments.chunk(2, dim=-1)
+        return mean, logvar.clamp(-30.0, 20.0)
 
     def decode(self, z):
         dtype = self.post_quant_conv.weight.dtype
@@ -142,6 +253,15 @@ class AutoencoderKL(nn.Module):
 
     def forward(self, z):
         return self.decode(z)
+
+
+@torch.no_grad()
+def encode_latents(vae: AutoencoderKL, x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Images ``(N, H, W, 3)`` in [-1, 1] -> scaled posterior-mean latents
+    ``(N, h, w, 4)`` in float32 (the deterministic encode of training and
+    vid2vid)."""
+    mean, _ = vae.encode(x)
+    return mean.float() * float(scale)
 
 
 @torch.no_grad()

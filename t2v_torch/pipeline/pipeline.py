@@ -35,12 +35,13 @@ from t2v_torch.diffusion.sampling import sample_loop
 from t2v_torch.diffusion.schedules import DiffusionSchedule
 from t2v_torch.io import convert
 from t2v_torch.models.modelscope_unet import UNetSD
-from t2v_torch.models.vae import AutoencoderKL, decode_uint8
+from t2v_torch.models.vae import AutoencoderKL, decode_uint8, encode_latents
 from t2v_torch.text.clip import CLIPTextTransformer
 from t2v_torch.text.encoder import TextEncoder
 from t2v_torch.text.tokenizer import CLIPTokenizer
 
 SCALE_FACTOR = 0.18215  # latent scaling
+DECODE_CHUNK = 8  # frames per VAE encode call (bounds the encoder's activation memory)
 # frames per VAE decode call follow the output pixel volume, as in the JAX
 # package: 8M pixels per call decodes 24 frames at 256x256 in one call
 DECODE_PIXEL_BUDGET = 8_000_000
@@ -94,6 +95,18 @@ def decode_latents(vae: AutoencoderKL, vae_cfg: VAEConfig, latents: torch.Tensor
         img = decode_uint8(vae, chunk, scale_factor)
         outs.append(img[: img.shape[0] - pad].cpu().numpy())
     return np.concatenate(outs, axis=0)
+
+
+def compute_latents(vae: AutoencoderKL, frames_rgb, scale_factor: float,
+                    device: torch.device) -> torch.Tensor:
+    """(F, H, W, 3) float frames in [-1, 1] (numpy or tensor) -> (1, F, h, w, 4)
+    scaled latents in float32: the deterministic posterior mean x
+    ``scale_factor``, encoded ``DECODE_CHUNK`` frames at a time."""
+    x = torch.as_tensor(np.asarray(frames_rgb, np.float32) if not torch.is_tensor(frames_rgb)
+                        else frames_rgb.float()).to(device)
+    chunks = [encode_latents(vae, x[i : i + DECODE_CHUNK], scale_factor)
+              for i in range(0, x.shape[0], DECODE_CHUNK)]
+    return torch.cat(chunks, dim=0)[None]
 
 
 # sub-modules whose weights the JAX package initialises to zero
@@ -210,6 +223,10 @@ class ModelScopePipeline:
         return cls._build(unet_cfg, vae_cfg, clip_cfg, tokenizer, policy, device, fill)
 
     # ------------------------------------------------------------------
+
+    def compute_latents(self, frames_rgb) -> torch.Tensor:
+        """(F, H, W, 3) float in [-1, 1] -> (1, F, h, w, 4) scaled latents."""
+        return compute_latents(self.vae, frames_rgb, SCALE_FACTOR, self.device)
 
     def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
         """(F, h, w, 4) scaled latents -> (F, H, W, 3) uint8 RGB."""

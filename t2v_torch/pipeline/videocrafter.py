@@ -12,7 +12,8 @@ the JAX package's zero-initialised leaves; ``from_jax`` loads the JAX
 package's parameter trees through ``io/convert.py``. The other branches of
 the JAX pipeline (DDPM and DPM++ sampling, windowed execution with a
 callback, T2I-Adapter features, mask inpainting, the ``uc_type`` CFG
-variants, FPS conditioning, LoRA, checkpoint loading) are not ported yet.
+variants, FPS conditioning, LoRA merging at load, checkpoint loading) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from t2v_torch.pipeline.pipeline import (
     InferResult,
     _spatial_scale,
     _sync,
+    compute_latents,
     decode_latents,
     init_weights,
     resolve_device,
@@ -177,6 +179,11 @@ class VideoCrafterPipeline:
         conditioning key."""
         return _routed_apply(self.unet, self.cfg.conditioning_key, features_adapter,
                              temporal_context)
+
+    def compute_latents(self, frames_rgb) -> torch.Tensor:
+        """(F, H, W, 3) float in [-1, 1] -> (1, F, h, w, 4) scaled latents:
+        the LVDM frame-batched encode, posterior mean x scale factor."""
+        return compute_latents(self.vae, frames_rgb, float(self.cfg.scale_factor), self.device)
 
     def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
         """(F, h, w, 4) scaled latents -> (F, H, W, 3) uint8 RGB."""

@@ -1,11 +1,13 @@
 """Guards of the PyTorch port: it imports nothing of JAX, flax or the JAX
 package; its entry points refuse CUDA on a host without a card; its kernel
 wrappers import on a CPU-only host and refuse what their kernels do not
-take; its own copies of the JAX package's host modules agree with them.
+take; its own copies of the JAX package's host modules (configs, schedules,
+the WebVid dataset, the safetensors reader) agree with them.
 """
 
 import ast
 import dataclasses
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -270,3 +272,62 @@ def test_full_unet_parameter_count_matches_jax():
     with torch.device("meta"):
         unet = UNetSD(tconfig.ModelScopeUNetConfig())
     assert sum(p.numel() for p in unet.parameters()) == n_jax
+
+
+def _functions_without_cv2_imports(module) -> dict:
+    """{qualified name: AST dump} of every function of ``module``, with the
+    ``import cv2`` statements and the docstrings dropped."""
+    out = {}
+
+    def visit(node, prefix):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.ClassDef):
+                visit(child, f"{prefix}{child.name}.")
+            elif isinstance(child, ast.FunctionDef):
+                body = [n for n in child.body
+                        if not (isinstance(n, ast.Import) and n.names[0].name == "cv2")
+                        and not (isinstance(n, ast.Expr) and isinstance(n.value, ast.Constant))]
+                out[prefix + child.name] = ast.dump(ast.Module(body=body, type_ignores=[]))
+                visit(child, f"{prefix}{child.name}.")
+
+    visit(ast.parse(inspect.getsource(module)), "")
+    return out
+
+
+def test_webvid_copy_matches_jax_and_imports_without_cv2():
+    from t2v.data import webvid as jwebvid
+    from t2v_torch.data import webvid as twebvid
+
+    mine, theirs = _functions_without_cv2_imports(twebvid), _functions_without_cv2_imports(jwebvid)
+    assert mine.keys() == theirs.keys() and len(mine) > 8
+    assert [k for k in mine if mine[k] != theirs[k]] == []
+    code = ("import sys; sys.modules['cv2'] = None\n"
+            "import t2v_torch.data.webvid, t2v_torch.cli.train\n"
+            "t2v_torch.cli.train.build_parser()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_safetensors_reader_copy_matches_jax():
+    from t2v.io import safetensors_io as jst
+    from t2v_torch.io import safetensors_io as tst
+
+    assert inspect.getsource(tst.load_safetensors) == inspect.getsource(jst.load_safetensors)
+    assert {k: str(v) for k, v in tst._DTYPES.items()} == {k: str(v) for k, v in jst._DTYPES.items()}
+
+
+def test_wrappers_take_their_function_only_for_tensors_that_need_a_gradient():
+    x = torch.zeros(2, 3)
+    assert not _build.needs_grad(x, None, 3)
+    assert _build.needs_grad(x, x.clone().requires_grad_())
+    with torch.no_grad():
+        assert not _build.needs_grad(x.clone().requires_grad_())
+    # CPU tensors never reach a kernel: no launch is counted, with or without gradients
+    counters = (tflash.COUNTER, tflash.DKV_COUNTER, tflash.DQ_COUNTER, tfused.COUNTER,
+                tfused.CROSS_COUNTER, trelpos.COUNTER, ttc.COUNTER)
+    before = [c.count for c in counters]
+    q = torch.randn(2, 8, 16, requires_grad=True)
+    tflash.flash_attention(q, q, q).sum().backward()
+    tfused.fused_self_mha(q, q, q, 2).sum().backward()
+    assert q.grad is not None and [c.count for c in counters] == before

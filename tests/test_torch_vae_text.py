@@ -1,8 +1,8 @@
-"""The port's VAE decoder, CLIP text tower, tokenizer and text encoder
-against the JAX package's at tiny configs in fp32, and the VAE / CLIP
-converter round trips.
+"""The port's VAE (decoder, encoder, posterior), CLIP text tower, tokenizer
+and text encoder against the JAX package's at tiny configs in fp32, and the
+VAE / CLIP converter round trips.
 
-Tolerances: float decoder and text-tower outputs to 1e-4 absolute and
+Tolerances: float decoder, encoder and text-tower outputs to 1e-4 absolute and
 relative (float32 on both sides, another summation order); uint8 frames
 within one level (a value on a rounding edge may round either way);
 tokenizer ids exactly.
@@ -20,14 +20,16 @@ from t2v.core.config import CLIPTextConfig as JClipCfg
 from t2v.core.config import VAEConfig as JVAECfg
 from t2v.io.convert import convert_vae
 from t2v.models.vae import AutoencoderKL as JVAE
-from t2v.models.vae import make_decode_uint8_fn
+from t2v.models.vae import DiagonalGaussian as JGaussian
+from t2v.models.vae import make_decode_uint8_fn, make_encode_latents_fn
 from t2v.text.clip import CLIPTextTransformer as JClip
 from t2v.text.clip import convert_open_clip_text
 from t2v.text.encoder import TextEncoder as JTextEncoder
 from t2v.text.tokenizer import CLIPTokenizer as JTokenizer
 from t2v_torch.core.config import CLIPTextConfig, VAEConfig
 from t2v_torch.io import convert
-from t2v_torch.models.vae import AutoencoderKL, decode_uint8
+from t2v_torch.models.vae import AutoencoderKL, DiagonalGaussian, decode_uint8, encode_latents
+from t2v_torch.pipeline.pipeline import DECODE_CHUNK, compute_latents
 from t2v_torch.text.clip import CLIPTextTransformer
 from t2v_torch.text.encoder import TextEncoder
 from t2v_torch.text.tokenizer import CLIPTokenizer
@@ -68,6 +70,78 @@ def test_vae_decode_matches_jax(vae_params):
     got_u8 = decode_uint8(vae, torch.from_numpy(z), 0.18215).numpy()
     assert got_u8.dtype == np.uint8
     assert np.abs(got_u8.astype(int) - want_u8.astype(int)).max() <= 1
+
+
+def _port_vae(params):
+    cfg = VAEConfig().tiny()
+    return convert.load_into(AutoencoderKL(cfg), convert.from_jax_vae(params, cfg)).eval()
+
+
+def test_vae_encode_matches_jax(vae_params):
+    x = np.random.default_rng(3).uniform(-1, 1, size=(3, 32, 32, 3)).astype(np.float32)
+    jvae = JVAE(cfg=JVAECfg().tiny())
+    want_mean, want_logvar = jax.jit(lambda p, x: jvae.apply(p, x, method=JVAE.encode))(
+        vae_params, x)
+    vae = _port_vae(vae_params)
+    with torch.no_grad():
+        mean, logvar = vae.encode(torch.from_numpy(x))
+    assert mean.shape == logvar.shape == (3, 16, 16, 4)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(want_mean), **TOL)
+    np.testing.assert_allclose(logvar.numpy(), np.asarray(want_logvar), **TOL)
+
+    want = np.asarray(make_encode_latents_fn(jvae, 0.18215)(vae_params, jnp.asarray(x)))
+    got = encode_latents(vae, torch.from_numpy(x), 0.18215)
+    assert got.dtype == torch.float32 and not got.requires_grad
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_vae_encode_clips_the_logvar(vae_params):
+    """A quant_conv bias of +-100 on the logvar channels drives them past
+    both ends of [-30, 20] in both packages."""
+    jvae = JVAE(cfg=JVAECfg().tiny())
+    x = np.random.default_rng(4).uniform(-1, 1, size=(1, 32, 32, 3)).astype(np.float32)
+    params = jax.tree.map(np.array, vae_params)
+    params["params"]["quant_conv"]["bias"][4:] = np.array([100.0, -100.0, 100.0, -100.0])
+    _, want = jvae.apply(params, x, method=JVAE.encode)
+    with torch.no_grad():
+        _, logvar = _port_vae(params).encode(torch.from_numpy(x))
+    assert logvar.max() == 20.0 and logvar.min() == -30.0
+    np.testing.assert_allclose(logvar.numpy(), np.asarray(want), **TOL)
+
+
+def test_compute_latents_chunks_frames(vae_params):
+    frames = np.random.default_rng(5).uniform(-1, 1, size=(DECODE_CHUNK + 3, 32, 32, 3)).astype(
+        np.float32)
+    jvae = JVAE(cfg=JVAECfg().tiny())
+    want = np.asarray(make_encode_latents_fn(jvae, 0.18215)(vae_params, jnp.asarray(frames)))[None]
+    vae = _port_vae(vae_params)
+    for given in (frames, torch.from_numpy(frames)):
+        got = compute_latents(vae, given, 0.18215, torch.device("cpu"))
+        assert got.shape == (1, DECODE_CHUNK + 3, 16, 16, 4) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_diagonal_gaussian_matches_jax(deterministic):
+    rng = np.random.default_rng(6)
+    f = lambda: rng.normal(size=(2, 4, 4, 4)).astype(np.float32)
+    mean, logvar, noise, sample, mean2, logvar2 = (f() for _ in range(6))
+    mine = DiagonalGaussian(torch.from_numpy(mean), torch.from_numpy(logvar), deterministic)
+    theirs = JGaussian(jnp.asarray(mean), jnp.asarray(logvar), deterministic)
+    other = DiagonalGaussian(torch.from_numpy(mean2), torch.from_numpy(logvar2))
+    jother = JGaussian(jnp.asarray(mean2), jnp.asarray(logvar2))
+    pairs = [
+        (mine.sample(noise=torch.from_numpy(noise)), theirs.sample(noise=jnp.asarray(noise))),
+        (mine.kl(), theirs.kl()), (mine.kl(other), theirs.kl(jother)),
+        (mine.nll(torch.from_numpy(sample)), theirs.nll(jnp.asarray(sample))),
+        (mine.mode(), theirs.mode()), (mine.std, theirs.std), (mine.var, theirs.var),
+    ]
+    for got, want in pairs:
+        assert tuple(got.shape) == tuple(want.shape)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    drawn = mine.sample(generator=torch.Generator().manual_seed(0))
+    again = mine.sample(generator=torch.Generator().manual_seed(0))
+    assert torch.equal(drawn, again) and (torch.equal(drawn, mine.mean) == deterministic)
 
 
 def test_from_jax_vae_round_trips_through_convert_vae(vae_params):
