@@ -33,9 +33,20 @@ and prints no result line):
    tower, 8-head UNet with relative-position temporal attention, SD VAE):
    two requests (16 frames at 256x256, 20 DDIM steps, CFG 9), counted
    launches, and the breakdown of one UNet call. No plain version of a
-   kernel may run on a CUDA tensor in phases 4 to 6;
-6. training, on the pipelines of phases 4 and 5: hold the gradients of the
-   five kernel ``autograd.Function``s against autograd through the plain
+   kernel may run on a CUDA tensor in phases 4 to 7;
+6. the ModelScope request modes (``drive_modes``), on a second full-width
+   ModelScope pipeline: first TPU rows 9 and 10, which no model calls, on
+   the activations of one 24-frame UNet call (forward hooks capture the q/k/v
+   of its 34 temporal self-attentions and the projections of its 33 GEGLU
+   sites; ``temporal_attention_packed`` and ``geglu`` run on each capture
+   and are held against the model's own route and the plain versions);
+   then UniPC, DPM++ 2M Karras and Euler a requests, vid2vid with
+   DDIM_Gaussian and DDIM, progressive inpainting, an exact request and the
+   same with DeepCache interval 2 (PSNR printed), the same windowed by a
+   callback every 5 steps (bit-identical latents), and one its callback
+   interrupts; every launch count against the topology's;
+7. training, on the pipelines of phases 4 and 5: hold the gradients of the
+   seven kernel ``autograd.Function``s against autograd through the plain
    versions at one training-path shape each; hold one small LoRA training
    step in bf16 on the card (loss and gradients) against float32 on the
    CPU; then train at full width on synthetic clips from a seed (batch 1 x
@@ -46,12 +57,12 @@ and prints no result line):
    weights did not, the EMA follows its rule, and the launch counts equal
    the topology's (5 flash backward pairs per step); print seconds per
    step, peak memory, and one profiled step's device time and idle share;
-7. print the card's name and power limit, one ``{"kernels": [...]}`` line,
+8. print the card's name and power limit, one ``{"kernels": [...]}`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a GPU, and in a directory without the port.
-``--only kernels|small|modelscope|videocrafter|train`` runs the build and
-one group of phases (for work on one of them; it prints no result line).
+``--only kernels|small|modelscope|modes|videocrafter|train`` runs the
+build and one group of phases (for work on one of them; it prints no result line).
 """
 
 from __future__ import annotations
@@ -79,6 +90,7 @@ TOL_SHARE = 0.02
 
 T = 24            # frames of the ModelScope request
 T_LONG = 125      # frames of the long ModelScope request
+PX = 256          # width and height of every request
 LAT = 32          # 256 px / 8
 STEPS = 20
 STEPS_LONG = 4
@@ -158,6 +170,33 @@ def _compare(rec: KernelRecord, label: str, got, want) -> None:
           f"tol={TOL_SHARE * scale:.3e} {'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         _fail(f"{rec.name} {label}: max abs error {err} above {TOL_SHARE * scale}")
+    rec.max_abs_err = max(rec.max_abs_err, err)
+
+
+# one bf16 rounding step is at most this share of the value it rounds to
+BF16_STEP = 2.0 ** -7
+
+
+def _compare_steps(rec: KernelRecord, label: str, got, want, steps: int) -> None:
+    """Element by element: every value of ``got`` within ``steps`` bf16
+    rounding steps of ``want`` (|got - want| <= steps * 2^-7 * |want| + 1e-6;
+    the 1e-6 covers values where both formulas cancel in 1 + erf). For an
+    elementwise function, whose outputs span orders of magnitude, where a
+    limit scaled by the largest |output| would pass wrong small values."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        _fail(f"{rec.name} {label}: kernel output is not finite")
+    diff = (got.float() - want.float()).abs()
+    limit = steps * BF16_STEP * want.float().abs() + 1e-6
+    bad = int((diff > limit).sum().item())
+    err, worst = diff.max().item(), (diff / limit).max().item()
+    print(f"  {rec.name:18s} {label:38s} max_abs_err={err:.3e} "
+          f"differing={int((diff > 0).sum().item())}/{diff.numel()} "
+          f"worst/limit={worst:.3f} (limit {steps} bf16 step) {'ok' if not bad else 'MISMATCH'}",
+          flush=True)
+    if bad:
+        _fail(f"{rec.name} {label}: {bad} values more than {steps} bf16 steps from the reference")
     rec.max_abs_err = max(rec.max_abs_err, err)
 
 
@@ -474,6 +513,98 @@ def check_relpos(g) -> list[KernelRecord]:
     return [rec]
 
 
+def check_temporal_mha(g) -> list[KernelRecord]:
+    """Row 9: frame-axis attention through its dispatch entry
+    ``temporal_attention_packed`` (which, on these CUDA tensors with F < 512,
+    launches ``fused_temporal_mha``) against the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from t2v_torch.kernels.attention import temporal_attention_packed
+    from t2v_torch.kernels.fused_mha import fused_temporal_mha_plain
+
+    rec = KernelRecord("fused_temporal_mha", "t2v_torch/csrc/fused_mha.cu",
+                       "t2v/kernels/fused_mha.py:104", "modelscope_unet_capture")
+    # (B samples, F frames, N tokens, heads, D): every ModelScope level at 24,
+    # 125 and 250 frames (CFG batch 2, 64-wide heads), the 1024x576 top level
+    # (72x128 latent), and ragged ones at the other head dims
+    ragged = [(2, 5, 7, 3, 40), (2, 5, 7, 2, 80), (2, 5, 7, 2, 160), (1, 37, 13, 2, 64)]
+    levels = [(1024, 5), (256, 10), (64, 20), (16, 20)]
+    cases = [(2, f, n, h, 64) for f in (T, T_LONG, 250) for n, h in levels]
+    cases += [(2, T, 9216, 5, 64), *ragged]
+    for b, f, n, h, d in cases:
+        hd = h * d
+        q, k, v = (torch.randn((b * f, n, hd), generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        got = temporal_attention_packed(q, k, v, h, f)
+        want = fused_temporal_mha_plain(q, k, v, h, f)
+        torch.cuda.synchronize()
+        _compare(rec, f"x{(b * f, n, hd)} heads={h} F={f}", got, want)
+        del got, want
+        if (b, f, n, h, d) in ragged or n == 16:  # checked, not timed
+            continue
+        # the library yardstick: one SDPA on the 4-D (B, N*H, F, D) view of
+        # the same memory (last dim contiguous, so the flash backend takes
+        # it), held against the plain version so it computes the same function
+        view = lambda t: t.view(b, f, n * h, d).transpose(1, 2)
+        lib = lambda: F.scaled_dot_product_attention(view(q), view(k), view(v))
+        lib_rec = KernelRecord("sdpa yardstick", "", "", "")
+        _compare(lib_rec, f"x{(b * f, n, hd)} F={f}", lib().transpose(1, 2).reshape(q.shape),
+                 fused_temporal_mha_plain(q, k, v, h, f))
+        ms = _time_ms(lambda: temporal_attention_packed(q, k, v, h, f), 10)
+        plain_ms = _time_ms(lambda: fused_temporal_mha_plain(q, k, v, h, f), 3)
+        lib_ms = _time_ms(lib, 10)
+        rec.timed((b * f, n, hd, h), ms, plain_ms, lib_ms, *_attn_flops_bytes(b * n, f, f, d, h),
+                  main=(f, n) == (T, 1024))
+        del q, k, v
+        _release()
+    return [rec]
+
+
+# flops per GEGLU output value counted for the bound (scale, erf, add, two
+# products); the bound is the bytes by two orders of magnitude either way
+GEGLU_FLOPS = 6
+
+
+def check_geglu(g) -> list[KernelRecord]:
+    """Row 10: the GEGLU combine through its entry ``geglu`` against the
+    plain version, at the projections of every ModelScope GEGLU site."""
+    import torch
+    import torch.nn.functional as F
+
+    from t2v_torch.kernels.geglu import geglu, geglu_plain
+
+    rec = KernelRecord("geglu", "t2v_torch/csrc/geglu.cu", "t2v/kernels/geglu.py:63",
+                       "modelscope_unet_capture")
+    # (rows, 2 * inner): the four levels at 24 frames with CFG (2 x 24 x HW
+    # tokens, inner = 4 x channels), the 1024x576 top level, an odd row count
+    # and a small inner
+    ragged = [(4099, 2560), (37, 16)]
+    cases = [(49152, 2560), (12288, 5120), (3072, 10240), (768, 10240), (442368, 2560), *ragged]
+    for rows, two_inner in cases:
+        proj = torch.randn((rows, two_inner), generator=g, device="cuda").to(torch.bfloat16)
+        got = geglu(proj)
+        want = geglu_plain(proj)
+        torch.cuda.synchronize()
+        # both compute h * gelu(gate) in f32 and round once to bf16: they
+        # may differ by one flipped rounding where erff and torch's erf do
+        _compare_steps(rec, f"proj{(rows, two_inner)}", got, want, 1)
+        del got, want
+        if (rows, two_inner) in ragged:  # checked, not timed
+            continue
+        inner = two_inner // 2
+        h, gate = proj[:, :inner], proj[:, inner:]
+        ms = _time_ms(lambda: geglu(proj), 20)
+        plain_ms = _time_ms(lambda: geglu_plain(proj), 3)
+        # the library yardstick is two calls, F.gelu and the product, in bf16
+        lib_ms = _time_ms(lambda: h * F.gelu(gate), 20)
+        rec.timed((rows, two_inner), ms, plain_ms, lib_ms, GEGLU_FLOPS * rows * inner,
+                  2.0 * rows * (two_inner + inner), main=(rows, two_inner) == (49152, 2560))
+        del proj, h, gate
+        _release()
+    return [rec]
+
+
 def build_kernels() -> float:
     from t2v_torch.kernels import _build
 
@@ -495,7 +626,7 @@ def check_refusals() -> None:
     take (wrong dtype, shape or contiguity), and launches nothing."""
     import torch
 
-    from t2v_torch.kernels import flash_attention, fused_mha, relpos_mha, temporal_conv
+    from t2v_torch.kernels import flash_attention, fused_mha, geglu, relpos_mha, temporal_conv
 
     def bf16(*shape):
         return torch.zeros(shape, device="cuda", dtype=torch.bfloat16)
@@ -550,6 +681,20 @@ def check_refusals() -> None:
             rq, rq, rq, bf16(4, 4, 20), bf16(4, 4, 20), 4, 4),
         "relpos_mha strided": lambda: relpos_mha.relpos_mha(
             *(bf16(8, 80, 6).transpose(1, 2),) * 3, r2, r2, 2, 4),
+        "fused_temporal_mha float32": lambda: fused_mha.fused_temporal_mha(
+            *(bf16(8, 6, 128).float(),) * 3, 2, 4),
+        "fused_temporal_mha head dim 32": lambda: fused_mha.fused_temporal_mha(
+            *(bf16(8, 6, 64),) * 3, 2, 4),
+        "fused_temporal_mha strided": lambda: fused_mha.fused_temporal_mha(
+            *(bf16(8, 128, 6).transpose(1, 2),) * 3, 2, 4),
+        "fused_temporal_mha rows not whole samples": lambda: fused_mha.fused_temporal_mha(
+            *(bf16(9, 6, 128),) * 3, 2, 4),
+        "fused_temporal_mha F 512": lambda: fused_mha.fused_temporal_mha(
+            *(bf16(512, 2, 128),) * 3, 2, 512),
+        "geglu float32": lambda: geglu.geglu(bf16(4, 32).float()),
+        "geglu strided": lambda: geglu.geglu(bf16(32, 4).transpose(0, 1)),
+        "geglu inner 12": lambda: geglu.geglu(bf16(4, 24)),
+        "geglu odd width": lambda: geglu.geglu(bf16(4, 33)),
     }
     counters = _counters().values()
     before = [k.count for k in counters]
@@ -574,7 +719,7 @@ def check_kernels() -> list[KernelRecord]:
         conv = check_temporal_conv(g)
         flash = check_flash(g)
         return [*conv, *flash, *check_flash_bwd(g, flash[0]), *check_fused_mha(g),
-                *check_relpos(g)]
+                *check_relpos(g), *check_temporal_mha(g), *check_geglu(g)]
 
 
 def _models(pipe):
@@ -596,13 +741,14 @@ def _perturb_zero_leaves(pipe) -> None:
 
 
 def _counters():
-    from t2v_torch.kernels import flash_attention, fused_mha, relpos_mha, temporal_conv
+    from t2v_torch.kernels import flash_attention, fused_mha, geglu, relpos_mha, temporal_conv
 
     return {"temporal_conv": temporal_conv.COUNTER, "flash_attention": flash_attention.COUNTER,
             "flash_bwd_dkv": flash_attention.DKV_COUNTER,
             "flash_bwd_dq": flash_attention.DQ_COUNTER,
             "fused_self_mha": fused_mha.COUNTER, "fused_cross_mha": fused_mha.CROSS_COUNTER,
-            "relpos_mha": relpos_mha.COUNTER}
+            "relpos_mha": relpos_mha.COUNTER,
+            "fused_temporal_mha": fused_mha.TEMPORAL_COUNTER, "geglu": geglu.COUNTER}
 
 
 def _reset_counters() -> None:
@@ -623,7 +769,7 @@ def _no_plain_on_cuda():
     backwards ``fused_mha_backward``, ``relpos_mha_backward`` and
     ``chain_backward``, which run plain math on the card by design, as the
     JAX package's custom VJPs do.)"""
-    from t2v_torch.kernels import flash_attention, fused_mha, relpos_mha, temporal_conv
+    from t2v_torch.kernels import flash_attention, fused_mha, geglu, relpos_mha, temporal_conv
 
     targets = [(flash_attention, "flash_attention_plain"),
                (flash_attention, "flash_attention_fwd_plain"),
@@ -631,8 +777,9 @@ def _no_plain_on_cuda():
                (flash_attention, "flash_attention_bwd_dkv_plain"),
                (flash_attention, "flash_attention_bwd_dq_plain"),
                (fused_mha, "fused_self_mha_plain"),
-               (fused_mha, "fused_cross_mha_plain"), (relpos_mha, "relpos_mha_plain"),
-               (temporal_conv, "layer_plain")]
+               (fused_mha, "fused_cross_mha_plain"), (fused_mha, "fused_temporal_mha_plain"),
+               (relpos_mha, "relpos_mha_plain"), (temporal_conv, "layer_plain"),
+               (geglu, "geglu_plain")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
     def guard(name, fn):
@@ -749,9 +896,12 @@ def check_small_vc_pipeline(device: str = "cuda") -> dict:
         args, noise, device)
 
 
-def _run_request(label, pipe, args, frames, expected) -> dict:
-    """One full-width request: seconds per phase, peak memory, the frames'
-    shape and finiteness, and the launch counts against ``expected``."""
+def _answer(label, pipe, args, frames, expected, unet_steps, **infer_kwargs):
+    """One full-width request, ``pipe.infer(args, **infer_kwargs)``, with
+    the plain versions barred from CUDA tensors; prints seconds per phase (and per UNet step over
+    ``unet_steps``), peak memory, the frames' shape, dtype and finiteness,
+    and fails on non-finite latents, flat frames or launch counts other
+    than ``expected``. Returns (launch counts, result)."""
     import numpy as np
     import torch
 
@@ -759,7 +909,7 @@ def _run_request(label, pipe, args, frames, expected) -> dict:
     _reset_counters()
     t0 = time.perf_counter()
     with _no_plain_on_cuda():
-        res = pipe.infer(args)
+        res = pipe.infer(args, **infer_kwargs)
     total = time.perf_counter() - t0
     counts = _read_counters()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -767,19 +917,19 @@ def _run_request(label, pipe, args, frames, expected) -> dict:
     finite = bool(np.isfinite(res.latents.cpu().numpy()).all())
     tm = res.timings
     print(f"{label}: {total:.3f} s/video (text {tm['text']:.3f}, sample "
-          f"{tm['sample']:.3f}, decode {tm['decode']:.3f}; {1e3 * tm['sample'] / args.steps:.2f} "
-          f"ms per step over {args.steps} steps), peak {peak:.2f} GiB, frames "
+          f"{tm['sample']:.3f}, decode {tm['decode']:.3f}; {1e3 * tm['sample'] / unet_steps:.2f} "
+          f"ms per step over {unet_steps} steps), peak {peak:.2f} GiB, frames "
           f"{fr.shape} {fr.dtype}, latents finite={finite}, frame mean {fr.mean():.2f} "
           f"std {fr.std():.2f}, launches {counts}", flush=True)
-    if fr.shape != (frames, 256, 256, 3) or fr.dtype != np.uint8:
-        _fail(f"{label}: frames {fr.shape} {fr.dtype}, expected ({frames}, 256, 256, 3) uint8")
+    if fr.shape != (frames, PX, PX, 3) or fr.dtype != np.uint8:
+        _fail(f"{label}: frames {fr.shape} {fr.dtype}, expected ({frames}, {PX}, {PX}, 3) uint8")
     if not finite:
         _fail(f"{label}: latents are not finite")
     if fr.std() == 0:
         _fail(f"{label}: every pixel is the same")
     if counts != expected:
         _fail(f"{label}: launch counts {counts} differ from the topology's {expected}")
-    return counts
+    return counts, res
 
 
 def _expected(per_call: dict, steps: int, decodes: int) -> dict:
@@ -842,8 +992,8 @@ def _serve_modelscope(pipe) -> dict:
                 frames=T, width=256, height=256, cfg_scale=CFG),
     ]
     for i, args in enumerate(requests):
-        launches["modelscope_24f"] = _run_request(f"ModelScope 24f request {i}", pipe, args, T,
-                                                  expected)
+        launches["modelscope_24f"] = _answer(f"ModelScope 24f request {i}", pipe, args, T,
+                                             expected, STEPS)[0]
 
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
@@ -854,8 +1004,233 @@ def _serve_modelscope(pipe) -> dict:
     expected = _expected(count_kernel_sites(pipe.unet_cfg, T_LONG, LAT, LAT), STEPS_LONG, decodes)
     args = T2VArgs(prompt="a photo of a cat in the forest", seed=99, steps=STEPS_LONG,
                    frames=T_LONG, width=256, height=256, cfg_scale=CFG)
-    launches["modelscope_125f"] = _run_request("ModelScope 125f request", pipe, args, T_LONG,
-                                               expected)
+    launches["modelscope_125f"] = _answer("ModelScope 125f request", pipe, args, T_LONG,
+                                          expected, STEPS_LONG)[0]
+    return launches
+
+
+def _capture_unet_path(pipe, recs: dict) -> dict:
+    """The path of rows 9 and 10: one CFG-batched 24-frame UNet call of the
+    full-width pipeline with forward hooks that keep the q/k/v of every
+    temporal self-attention (unswapped to the sample-major (B*F, N, H*D)
+    layout) and the projection of every GEGLU site; then
+    ``temporal_attention_packed`` and ``geglu`` on each capture. Counts are
+    reset just before the call and read just after the last entry; each
+    result is then held against the model's own route on the same tensors
+    (``self_attention_packed`` on the token layout; ``GEGLU.forward``'s
+    output) and against the plain version. Returns the launches."""
+    import torch
+
+    from t2v_torch.kernels import fused_mha
+    from t2v_torch.kernels.attention import self_attention_packed, temporal_attention_packed
+    from t2v_torch.kernels.geglu import geglu, geglu_plain
+    from t2v_torch.models.modelscope_unet import count_kernel_sites
+
+    unet = pipe.unet
+    topo = unet.topology
+    descs = [d for entry in (*topo.encoder, topo.middle, *topo.decoder) for d in entry]
+    # every temporal transformer runs two self-attentions; every spatial and
+    # temporal transformer block has one GEGLU feed-forward
+    want_temporal = 2 * sum(d.kind == "temporal" for d in descs)
+    want_geglu = sum(d.kind in ("spatial", "temporal") for d in descs)
+    caps_t, caps_g, hooks = [], [], []
+
+    def keep(rec, name):
+        return lambda mod, args, out: rec.__setitem__(name, out)
+
+    for d in descs:
+        if d.kind not in ("spatial", "temporal"):
+            continue
+        block = unet.get_submodule(d.torch_path).transformer_blocks[0]
+        if d.kind == "temporal":
+            for attn in (block.attn1, block.attn2):
+                rec = {"heads": attn.heads, "site": d.torch_path}
+                caps_t.append(rec)
+                hooks += [getattr(attn, n).register_forward_hook(keep(rec, n))
+                          for n in ("to_q", "to_k", "to_v")]
+        ff = block.ff.net[0]
+        rec = {"site": d.torch_path}
+        caps_g.append(rec)
+        hooks += [ff.proj.register_forward_hook(keep(rec, "proj")),
+                  ff.register_forward_hook(keep(rec, "model"))]
+
+    dev = pipe.device
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((2, T, LAT, LAT, 4), generator=g, device=dev)
+    t = torch.full((2,), 981.0, device=dev)
+    ctx = torch.randn((2, 77, pipe.unet_cfg.context_dim), generator=g, device=dev)
+    _reset_counters()
+    with torch.no_grad(), _no_plain_on_cuda():
+        unet(x, t, ctx)
+        for h in hooks:
+            h.remove()
+        for rec in caps_t:
+            rec["n"] = rec["to_q"].shape[0] // x.shape[0]
+            rec["qkv"] = [fused_mha.unswap_frame_axis(rec[k], rec["n"])
+                          for k in ("to_q", "to_k", "to_v")]
+            rec["got"] = temporal_attention_packed(*rec["qkv"], rec["heads"], T)
+        for rec in caps_g:
+            rec["got"] = geglu(rec["proj"])
+    torch.cuda.synchronize()
+    counts = _read_counters()
+    expected = _expected(count_kernel_sites(pipe.unet_cfg, T, LAT, LAT), 1, 0)
+    expected.update(fused_temporal_mha=want_temporal, geglu=want_geglu)
+    print(f"row 9/10 path: one UNet call (2 x {T} frames, {LAT}x{LAT} latent), "
+          f"{len(caps_t)} temporal self-attention and {len(caps_g)} GEGLU captures, "
+          f"launches {counts}", flush=True)
+    if (len(caps_t), len(caps_g)) != (want_temporal, want_geglu) or counts != expected:
+        _fail(f"row 9/10 path: {len(caps_t)} / {len(caps_g)} captures and launches {counts}, "
+              f"expected {want_temporal} / {want_geglu} and {expected}")
+
+    with torch.no_grad():
+        for rec in caps_t:
+            q, k, v = (rec[n] for n in ("to_q", "to_k", "to_v"))
+            model = fused_mha.unswap_frame_axis(self_attention_packed(q, k, v, rec["heads"]),
+                                                rec["n"])
+            label = f"{rec['site']} x{tuple(rec['got'].shape)} heads={rec['heads']}"
+            _compare(recs["fused_temporal_mha"], f"vs model {label}", rec["got"], model)
+            _compare(recs["fused_temporal_mha"], f"vs plain {label}", rec["got"],
+                     fused_mha.fused_temporal_mha_plain(*rec["qkv"], rec["heads"], T))
+        for rec in caps_g:
+            label = f"{rec['site']} proj{tuple(rec['proj'].shape)}"
+            # the model rounds gelu(gate) to bf16 before the product: each
+            # value may land one more bf16 step away
+            _compare_steps(recs["geglu"], f"vs model {label}", rec["got"], rec["model"], 2)
+            _compare_steps(recs["geglu"], f"vs plain {label}", rec["got"],
+                           geglu_plain(rec["proj"]), 1)
+    torch.cuda.synchronize()
+    del caps_t, caps_g
+    _release()
+    return counts
+
+
+def _unet_calls(pipe, sampler: str, steps: int, vid2vid_strength=None) -> int:
+    """UNet calls of a request: a multistep sampler calls the model once per
+    step; DDIM vid2vid runs int(strength * steps) rungs; the others their
+    plan's steps."""
+    from t2v_torch.diffusion import ddim
+    from t2v_torch.diffusion.sampling import get_sampler
+
+    mod = get_sampler(sampler)
+    if getattr(mod, "MULTISTEP", False):
+        return steps
+    if vid2vid_strength is not None and mod is ddim:
+        return int(vid2vid_strength * steps)
+    return mod.plan(pipe.schedule, steps).steps
+
+
+def _psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean())
+    return float("inf") if mse == 0 else 10.0 * math.log10(255.0 ** 2 / mse)
+
+
+def drive_modes(recs: dict) -> dict:
+    """The ModelScope request modes on the full-width pipeline of phase 4
+    (24 frames at 256x256, CFG 9): UniPC, DPM++ 2M Karras and Euler a (20
+    steps each); vid2vid with DDIM_Gaussian (strength 0.75) and DDIM
+    (strength 0.5) on the UniPC request's frames through compute_latents;
+    img2vid progressive inpainting (DDIM_Gaussian) from its frame 0 with 12
+    inpainting frames; an exact DDIM_Gaussian request and the same request
+    with DeepCache interval 2 (PSNR printed, no limit: the weights are
+    random); the same request windowed by a callback every 5 steps, which
+    must reproduce the exact latents bit for bit; and one whose callback
+    interrupts it after the second window. Each request's launches must
+    equal the topology's sites times its UNet calls (DeepCache: full calls
+    times the full sites plus cached calls times the shallow sites). First,
+    the path of rows 9 and 10 on the captured activations of one UNet call.
+    Returns the launches per path."""
+    import numpy as np
+    import torch
+
+    from t2v_torch.core.config import ModelScopeUNetConfig, T2VArgs
+    from t2v_torch.core.dtypes import Policy
+    from t2v_torch.core.state import InterruptedException
+    from t2v_torch.models.modelscope_unet import count_kernel_sites
+    from t2v_torch.pipeline.pipeline import ModelScopePipeline
+
+    t0 = time.perf_counter()
+    pipe = ModelScopePipeline.random_init(ModelScopeUNetConfig(), Policy.bf16(), seed=0,
+                                          device="cuda")
+    _perturb_zero_leaves(pipe)
+    torch.cuda.synchronize()
+    print(f"modes: ModelScope pipeline random_init {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {"modelscope_unet_capture": _capture_unet_path(pipe, recs)}
+
+    full = count_kernel_sites(pipe.unet_cfg, T, LAT, LAT)
+    shallow = count_kernel_sites(pipe.unet_cfg, T, LAT, LAT, cached=True)
+
+    def expect(calls, cached_calls=0, decodes=1):
+        out = _expected(full, calls, decodes)
+        for k, v in shallow.items():
+            out[k] += cached_calls * v
+        return out
+
+    def request(label, args, calls, cached_calls=0, decodes=1, **kw):
+        counts, res = _answer(f"modes {label}", pipe, args, T, expect(calls, cached_calls,
+                                                                       decodes),
+                              calls + cached_calls, **kw)
+        launches[f"modes_{label}"] = counts
+        return res
+
+    base = dict(prompt="a red fox running through the snow, masterpiece", frames=T, width=PX,
+                height=PX, cfg_scale=CFG, steps=STEPS)
+    first = None
+    for i, sampler in enumerate(("UniPC", "DPM++ 2M Karras", "Euler a")):
+        res = request(sampler.replace(" ", "_"), T2VArgs(**base, sampler=sampler, seed=40 + i),
+                      _unet_calls(pipe, sampler, STEPS))
+        first = first if first is not None else res
+
+    source = first.frames.astype(np.float32) / 255.0 * 2.0 - 1.0
+    latents = pipe.compute_latents(source)
+    for sampler, strength in (("DDIM_Gaussian", 0.75), ("DDIM", 0.5)):
+        skip = int(math.floor(STEPS * (1.0 - strength)))
+        request(f"vid2vid_{sampler}", T2VArgs(**base, sampler=sampler, strength=strength, seed=50),
+                _unet_calls(pipe, sampler, STEPS - skip, strength), latents=latents,
+                is_vid2vid=True, skip_steps=skip)
+
+    args = T2VArgs(**base, seed=60, inpainting_frames=T // 2)
+    masked, mask, image_latents = pipe.build_inpainting_inputs(first.frames[0], args)
+    request("inpaint_progressive", args, _unet_calls(pipe, "DDIM_Gaussian", STEPS),
+            latents=masked, mask=mask, image_latents=image_latents, inpaint_mode="progressive")
+
+    exact_args = T2VArgs(**base, seed=70)
+    n = _unet_calls(pipe, "DDIM_Gaussian", STEPS)
+    exact = request("exact", exact_args, n)
+    cache = request("deepcache_2", exact_args, (n + 1) // 2, n // 2, deep_cache_interval=2)
+    print(f"modes DeepCache interval 2: frames {_psnr(cache.frames, exact.frames):.2f} dB PSNR "
+          f"from the exact request (random weights: reported, no limit)", flush=True)
+    seen = []
+    windowed = request("windowed", exact_args, n, callback=seen.append, callback_interval=5)
+    same = torch.equal(windowed.latents, exact.latents)
+    print(f"modes windowed: callbacks at {seen}, latents equal to the un-windowed request's bit "
+          f"for bit: {same}", flush=True)
+    if not same or seen != list(range(5, n + 1, 5)):
+        _fail(f"modes windowed: callbacks {seen}, latents equal {same}")
+
+    stops = []
+
+    def interrupt(done):
+        stops.append(done)
+        if len(stops) == 2:
+            raise InterruptedException
+
+    _reset_counters()
+    try:
+        with _no_plain_on_cuda():
+            pipe.infer(exact_args, callback=interrupt, callback_interval=5)
+    except InterruptedException:
+        counts = _read_counters()
+        print(f"modes interrupted: stopped after the callback at step {stops[-1]}, launches "
+              f"{counts}", flush=True)
+        if stops != [5, 10] or counts != expect(10, decodes=0):
+            _fail(f"modes interrupted: callbacks {stops}, launches {counts}")
+        launches["modes_interrupted"] = counts
+    else:
+        _fail("modes interrupted: the callback's InterruptedException did not stop the request")
+    del pipe
+    _release()
     return launches
 
 
@@ -907,7 +1282,8 @@ def _serve_videocrafter(pipe) -> dict:
     ]
     launches = None
     for i, args in enumerate(requests):
-        launches = _run_request(f"VideoCrafter 16f request {i}", pipe, args, VC_T, expected)
+        launches = _answer(f"VideoCrafter 16f request {i}", pipe, args, VC_T, expected,
+                           VC_STEPS)[0]
 
     g = torch.Generator(device="cuda")
     g.manual_seed(2)
@@ -941,11 +1317,12 @@ def _grad_check(label, fn, plain, inputs, g) -> None:
 
 
 def check_gradients() -> None:
-    """Each of the five autograd.Functions at one training-path shape."""
+    """Each of the seven autograd.Functions at one training-path shape."""
     import torch
 
     from t2v_torch.kernels import flash_attention as fa
     from t2v_torch.kernels import fused_mha as fm
+    from t2v_torch.kernels import geglu as gg
     from t2v_torch.kernels import relpos_mha as rp
     from t2v_torch.kernels import temporal_conv as tc
 
@@ -977,10 +1354,17 @@ def check_gradients() -> None:
                 lambda x, *ts: tc.TemporalConvChainFunction.apply(1e-5, x, *ts),
                 lambda x, *ts: tc.chain_plain(x, regroup(ts)),
                 [bf(TRAIN_B, TRAIN_T, 1024, 320), *flat], g)
+    _grad_check("fused_temporal_mha (16, 1024, 320) 5 h, F = 16",
+                lambda q, k, v: fm.FusedTemporalMHAFunction.apply(q, k, v, 5, TRAIN_T, 0.125),
+                lambda q, k, v: fm.fused_temporal_mha_plain(q, k, v, 5, TRAIN_T, 0.125),
+                [bf(TRAIN_T * TRAIN_B, 1024, 320) for _ in range(3)], g)
+    _grad_check("geglu (16384, 2560)", gg.GEGLUFunction.apply, gg.geglu_plain,
+                [bf(TRAIN_T * TRAIN_B * 1024, 2560)], g)
     after = _read_counters()
     moved = {k: after[k] - before[k] for k in after}
     want = {"temporal_conv": 4, "flash_attention": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1,
-            "fused_self_mha": 1, "fused_cross_mha": 1, "relpos_mha": 1}
+            "fused_self_mha": 1, "fused_cross_mha": 1, "relpos_mha": 1,
+            "fused_temporal_mha": 1, "geglu": 1}
     if moved != want:
         _fail(f"gradient checks launched {moved}, expected {want}")
     _release()
@@ -1205,6 +1589,7 @@ _CATEGORIES = (
     ("fused_self_mha kernel", ("packed_mha_kernel",)),
     ("fused_cross_mha kernel", ("cross_mha_kernel",)),
     ("relpos_mha kernel", ("relpos_mha_kernel",)),
+    ("geglu kernel", ("geglu_kernel",)),
     ("convolution (cuDNN)", ("conv", "fprop", "implicit", "cudnn")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet")),
 )
@@ -1266,8 +1651,8 @@ def _print_breakdown(kernels, busy: float, top: int = 10) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=("kernels", "small", "modelscope", "videocrafter",
-                                           "train"),
+    parser.add_argument("--only", choices=("kernels", "small", "modelscope", "modes",
+                                           "videocrafter", "train"),
                         help="run the build and one group of phases; prints no result line")
     only = parser.parse_args().only
     try:
@@ -1312,6 +1697,12 @@ def main() -> int:
     if only in (None, "modelscope", "train"):
         launches.update(drive_modelscope(serve or only == "modelscope", train))
         print(f"ModelScope done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    if only in (None, "modes"):
+        by_name = {r.name: r for r in records}
+        recs = {n: by_name.get(n) or KernelRecord(n, "", "", "") for n in
+                ("fused_temporal_mha", "geglu")}
+        launches.update(drive_modes(recs))
+        print(f"ModelScope modes done at {time.perf_counter() - t_start:.0f} s", flush=True)
     if only in (None, "videocrafter", "train"):
         launches.update(drive_videocrafter(serve or only == "videocrafter", train))
         print(f"VideoCrafter done at {time.perf_counter() - t_start:.0f} s", flush=True)

@@ -6,7 +6,10 @@
 //  * packed_mha_kernel: q (B, N, H*D) over k/v (B, S, H*D), any N and S,
 //    keys streamed with an online softmax. The self-attention entry
 //    (S = N < 512) and cross-attention over contexts too long for the kernel
-//    below go here.
+//    below go here. It is templated on where a sequence's rows lie
+//    (TokenRows, FrameRows): the frame-axis entry runs the same body over
+//    the sample-major (B*F, N, H*D) layout, attending across the F frame
+//    rows of each (sample, spatial token) with a row stride of N*H*D.
 //  * cross_mha_kernel: q (B, N, H*D) with many rows over a short context
 //    k/v (B, S, H*D), S <= 128 (the 77-token text context): K and V of one
 //    head sit whole in shared memory and are shared by every query tile of
@@ -17,16 +20,23 @@
 // fused_self_mha; dispatched from t2v/kernels/attention.py::
 // self_attention_packed for N < FLASH_MIN_KV) and
 // t2v/kernels/fused_mha.py::_cross_mha_kernel (driven by fused_cross_mha;
-// dispatched from cross_attention_packed for S < FLASH_MIN_KV). The TPU
-// self kernel's block-diagonal (bt*N)^2 packing and the cross kernel's
-// row-block budget were workarounds for the 128x128 MXU and VMEM and are not
-// part of the contract.
+// dispatched from cross_attention_packed for S < FLASH_MIN_KV) and
+// t2v/kernels/fused_mha.py::_temporal_mha_kernel (driven by
+// fused_temporal_mha; dispatched from temporal_attention_packed for
+// F < FLASH_MIN_KV). The TPU self and temporal kernels' block-diagonal
+// (bt*N)^2 packing, the temporal kernel's frame padding to a multiple of 8
+// and its in-VMEM frame<->token swap, and the cross kernel's row-block
+// budget were workarounds for the 128x128 MXU, the (8, 128) tiling and VMEM
+// and are not part of the contract: here the swap is an address map.
 //
 // What bounds them on the H100: the problems are tiny (N = 24 frames over
 // 64-wide heads: 2*2*24*24*64 flops per head on 4*24*64*2 bytes; 77 keys
 // per query row in the cross case: 4*77*D flops on 4*D bytes of q and o),
 // so both move q, k, v and o once and are bound by device memory and by
-// how well the (sequence, head, tile) items fill 132 SMs.
+// how well the (sequence, head, tile) items fill 132 SMs. The frame-axis
+// entry moves the same bytes; each (frame, token, head) row it loads is
+// still D contiguous bf16 (128 B at D = 64), but consecutive frames lie
+// N*H*D elements apart, so a 16-row tile touches 16 separate segments.
 //
 // Design:
 //  * the head dim is a template parameter DP, a multiple of 16 (the WMMA
@@ -86,10 +96,25 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src, si
   }
 }
 
-template <int DP>
+// Where the rows of one attention sequence lie in a packed (rows, H*D)
+// tensor, in rows: the first row of sequence `seq` of length `len`, and the
+// step between its positions. `inner` is the token count N of the frame
+// layout (unused by TokenRows).
+struct TokenRows {  // (B, N, H*D): sequence b is rows b*N .. b*N + N - 1
+  __device__ static size_t first(long seq, int len, int) { return (size_t)seq * len; }
+  __device__ static size_t step(int) { return 1; }
+};
+struct FrameRows {  // (B*F, N, H*D): sequence (b, n), position f at row (b*F + f)*N + n
+  __device__ static size_t first(long seq, int len, int inner) {
+    return (size_t)(seq / inner) * len * inner + (size_t)(seq % inner);
+  }
+  __device__ static size_t step(int inner) { return (size_t)inner; }
+};
+
+template <int DP, class Rows>
 __global__ void __launch_bounds__(WARPS * 32) packed_mha_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int B, int N, int S, int H, int D, float scale) {
+    bf16* __restrict__ o, int B, int N, int S, int H, int D, int inner, float scale) {
   using L = StreamSmem<DP>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int lane = threadIdx.x % 32;
@@ -99,13 +124,14 @@ __global__ void __launch_bounds__(WARPS * 32) packed_mha_kernel(
   if (item >= (long)B * H * n_qt) return;  // warp-uniform; no block barrier below
   const int qt = item % n_qt;
   const int bh = item / n_qt;
-  const int b = bh / H;
+  const long b = bh / H;
   const int h = bh % H;
   const int hd = H * D;
-  const bf16* qb = q + (size_t)b * N * hd + (size_t)h * D;
-  const bf16* kb = k + (size_t)b * S * hd + (size_t)h * D;
-  const bf16* vb = v + (size_t)b * S * hd + (size_t)h * D;
-  bf16* ob = o + (size_t)b * N * hd + (size_t)h * D;
+  const size_t row_stride = Rows::step(inner) * hd;
+  const bf16* qb = q + Rows::first(b, N, inner) * hd + (size_t)h * D;
+  const bf16* kb = k + Rows::first(b, S, inner) * hd + (size_t)h * D;
+  const bf16* vb = v + Rows::first(b, S, inner) * hd + (size_t)h * D;
+  bf16* ob = o + Rows::first(b, N, inner) * hd + (size_t)h * D;
   const int q0 = qt * QT;
 
   unsigned char* ws = smem + warp * L::WARP_BYTES;
@@ -119,7 +145,7 @@ __global__ void __launch_bounds__(WARPS * 32) packed_mha_kernel(
   float* l_s = m_s + QT;
   float* a_s = l_s + QT;
 
-  load_tile<DP>(Qs, L::LDQ, qb, hd, q0, QT, N, D, lane, 32);
+  load_tile<DP>(Qs, L::LDQ, qb, row_stride, q0, QT, N, D, lane, 32);
   for (int e = lane; e < QT * DP; e += 32) Os[(e / DP) * L::LDO + e % DP] = 0.0f;
   if (lane < QT) {
     m_s[lane] = -CUDART_INF_F;
@@ -129,8 +155,8 @@ __global__ void __launch_bounds__(WARPS * 32) packed_mha_kernel(
   const int row = lane / 2;  // two lanes per query row
   const int sub = lane % 2;
   for (int kv0 = 0; kv0 < S; kv0 += KT) {
-    load_tile<DP>(Ks, L::LDQ, kb, hd, kv0, KT, S, D, lane, 32);
-    load_tile<DP>(Vs, L::LDQ, vb, hd, kv0, KT, S, D, lane, 32);
+    load_tile<DP>(Ks, L::LDQ, kb, row_stride, kv0, KT, S, D, lane, 32);
+    load_tile<DP>(Vs, L::LDQ, vb, row_stride, kv0, KT, S, D, lane, 32);
     __syncwarp();
 
 #pragma unroll
@@ -210,7 +236,7 @@ __global__ void __launch_bounds__(WARPS * 32) packed_mha_kernel(
     if (q0 + r < N && c < D) {
       const float l = l_s[r];
       const float safe = (l == 0.0f) ? 1.0f : l;
-      ob[(size_t)(q0 + r) * hd + c] = __float2bfloat16(Os[r * L::LDO + c] / safe);
+      ob[(size_t)(q0 + r) * row_stride + c] = __float2bfloat16(Os[r * L::LDO + c] / safe);
     }
   }
 }
@@ -335,17 +361,34 @@ __global__ void __launch_bounds__(WARPS * 32) cross_mha_kernel(
   }
 }
 
-template <int DP>
-int launch_stream(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int N, int S,
-                  int H, int D, float scale, cudaStream_t stream) {
+// B sequences of N queries over S keys, laid out as Rows says
+template <int DP, class Rows>
+int launch_stream(const bf16* q, const bf16* k, const bf16* v, bf16* o, long B, int N, int S,
+                  int H, int D, int inner, float scale, cudaStream_t stream) {
   constexpr int bytes = StreamSmem<DP>::BLOCK_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(packed_mha_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(packed_mha_kernel<DP, Rows>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long items = (long)B * H * ((N + QT - 1) / QT);
-  const unsigned blocks = static_cast<unsigned>((items + WARPS - 1) / WARPS);
-  packed_mha_kernel<DP><<<blocks, WARPS * 32, bytes, stream>>>(q, k, v, o, B, N, S, H, D, scale);
+  const long items = B * H * ((N + QT - 1) / QT);
+  const long blocks = (items + WARPS - 1) / WARPS;
+  if (B > 0x7fffffffL || blocks > 0x7fffffffL) return 1;
+  packed_mha_kernel<DP, Rows><<<static_cast<unsigned>(blocks), WARPS * 32, bytes, stream>>>(
+      q, k, v, o, static_cast<int>(B), N, S, H, D, inner, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// self-attention over (B, N, H*D), or q (B, N, H*D) over k/v (B, S, H*D)
+template <int DP>
+int launch_self(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int N, int S,
+                int H, int D, float scale, cudaStream_t stream) {
+  return launch_stream<DP, TokenRows>(q, k, v, o, B, N, S, H, D, 1, scale, stream);
+}
+
+// attention across the F frame rows of every (sample, token) of (B*F, N, H*D)
+template <int DP>
+int launch_temporal(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int F, int N,
+                    int H, int D, float scale, cudaStream_t stream) {
+  return launch_stream<DP, FrameRows>(q, k, v, o, (long)B * N, F, F, H, D, N, scale, stream);
 }
 
 template <int DP>
@@ -388,7 +431,7 @@ extern "C" int t2v_fused_self_mha(const void* q, const void* k, const void* v, v
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  T2V_DISPATCH_DP(launch_stream, qp, kp, vp, op, B, N, S, H, D, scale, st)
+  T2V_DISPATCH_DP(launch_self, qp, kp, vp, op, B, N, S, H, D, scale, st)
 }
 
 // q (B, N, H*D) over a short context k/v (B, S, H*D), S <= 128
@@ -401,4 +444,18 @@ extern "C" int t2v_fused_cross_mha(const void* q, const void* k, const void* v, 
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   T2V_DISPATCH_DP(launch_cross, qp, kp, vp, op, B, N, S, H, D, scale, st)
+}
+
+// frame-axis self-attention over sample-major q/k/v (B*F, N, H*D): for every
+// sample b, spatial token n and head, the F rows (b*F + f, n) attend each
+// other
+extern "C" int t2v_fused_temporal_mha(const void* q, const void* k, const void* v, void* o,
+                                      int B, int F, int N, int H, int D, float scale,
+                                      void* stream) {
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  bf16* op = static_cast<bf16*>(o);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  T2V_DISPATCH_DP(launch_temporal, qp, kp, vp, op, B, F, N, H, D, scale, st)
 }

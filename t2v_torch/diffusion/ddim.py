@@ -1,11 +1,13 @@
 """DDIM — the Stable-Diffusion-style DDIM sampler (the VideoCrafter
 default), in PyTorch.
 
-The port of the JAX package's ``diffusion/ddim.py`` on its txt2vid path:
-the uniform timestep subset with its sigma tables, full-channel CFG, and
-the eps-parameterised update x_t -> x_{t-1}. Plan tables are float32
-numpy in sampling order (descending t); ``step`` reads the per-step
-scalars as Python floats.
+The port of the JAX package's ``diffusion/ddim.py``: the uniform timestep
+subset with its sigma tables, full-channel CFG, the eps-parameterised
+update x_t -> x_{t-1}, and the vid2vid entry (``stochastic_encode`` at
+ascending index ``int(strength * steps)``, then the plan truncated to that
+many rungs by ``truncate_for_vid2vid``). Plan tables are float32 numpy in
+sampling order (descending t); ``step`` reads the per-step scalars as
+Python floats.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from t2v_torch.diffusion.schedules import (
 )
 
 NAME = "DDIM"
+FRAME_INPAINT_SUPPORT = False
 CFG_COMBINE = "full"
 
 
@@ -35,6 +38,8 @@ class Plan:
     sqrt_one_minus_alphas: np.ndarray
     sigmas: np.ndarray
     steps: int
+    # ascending tables kept for stochastic_encode
+    ddim_alphas_asc: np.ndarray
 
 
 def plan(schedule: DiffusionSchedule, steps: int, eta: float = 0.0) -> Plan:
@@ -55,6 +60,22 @@ def plan(schedule: DiffusionSchedule, steps: int, eta: float = 0.0) -> Plan:
         sqrt_one_minus_alphas=flip(np.sqrt(1.0 - alphas)),
         sigmas=flip(sigmas),
         steps=steps,
+        ddim_alphas_asc=alphas,
+    )
+
+
+def truncate_for_vid2vid(p: Plan, t_start: int) -> Plan:
+    """vid2vid decodes over the first ``t_start`` ascending rungs only, i.e.
+    the last ``t_start`` entries of the tables in sampling order."""
+    sl = slice(p.steps - t_start, None)
+    return Plan(
+        timesteps=p.timesteps[sl],
+        alphas=p.alphas[sl],
+        alphas_prev=p.alphas_prev[sl],
+        sqrt_one_minus_alphas=p.sqrt_one_minus_alphas[sl],
+        sigmas=p.sigmas[sl],
+        steps=t_start,
+        ddim_alphas_asc=p.ddim_alphas_asc,
     )
 
 
@@ -71,3 +92,11 @@ def step(x: torch.Tensor, eps: torch.Tensor, p: Plan, i: int, noise) -> torch.Te
     if sigma != 0:
         out = out + float(sigma) * noise
     return out
+
+
+def stochastic_encode(p: Plan, latent, noise, t_enc: int):
+    """q-sample at ascending DDIM index ``t_enc`` (clamped to the table)."""
+    t_enc = min(int(t_enc), len(p.ddim_alphas_asc) - 1)
+    sa = float(np.sqrt(p.ddim_alphas_asc[t_enc]))
+    sb = float(np.sqrt(1.0 - p.ddim_alphas_asc[t_enc]))
+    return sa * latent + sb * noise

@@ -3,9 +3,9 @@ default), in PyTorch.
 
 The port of the JAX package's ``diffusion/ddim_gaussian.py``: the stride
 timestep ladder, CFG on the first C//2 output channels only (the learned
-variance split), eps -> x0 -> DDIM update with eta noise gated off at t=0.
-Plan tables are float32 numpy; ``step`` reads the per-step scalars as
-Python floats.
+variance split), eps -> x0 -> DDIM update with eta noise gated off at t=0,
+and the vid2vid re-noise (``encode_vid2vid``). Plan tables are float32
+numpy; ``step`` reads the per-step scalars as Python floats.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 from t2v_torch.diffusion.schedules import DiffusionSchedule, modelscope_timesteps
 
 NAME = "DDIM_Gaussian"
+FRAME_INPAINT_SUPPORT = True
 CFG_COMBINE = "split_learned_range"
 
 
@@ -65,3 +66,17 @@ def step(x: torch.Tensor, eps: torch.Tensor, p: Plan, i: int, noise) -> torch.Te
     if sigma != 0 and int(p.timesteps[i]) != 0:
         out = out + float(sigma) * noise
     return out
+
+
+def encode_vid2vid(schedule: DiffusionSchedule, latent, noise, strength: float, steps: int):
+    """Re-noise input latents for vid2vid. The reference passes
+    ``int(strength*steps)`` as the stride of its timestep ladder and uses the
+    top rung, i.e. it re-noises to near t=T-1 whatever the strength;
+    preserved as the JAX package preserves it."""
+    denoise_steps = max(int(strength * steps), 1)
+    ladder = 1 + np.arange(0, schedule.num_timesteps, denoise_steps)
+    ladder = np.clip(ladder, 0, schedule.num_timesteps - 1)
+    t_top = int(ladder[::-1][0])
+    sa = float(schedule.sqrt_alphas_cumprod[t_top])
+    sb = float(schedule.sqrt_one_minus_alphas_cumprod[t_top])
+    return sa * latent + sb * noise

@@ -70,6 +70,11 @@ class DiffusionSchedule:
         return np.cumprod(1.0 - self.betas)
 
     @property
+    def alphas_cumprod_f64(self) -> np.ndarray:
+        """The float64 table the UniPC and DPM++ marginals interpolate."""
+        return self._alphas_cumprod64
+
+    @property
     def alphas_cumprod(self) -> np.ndarray:
         return self._alphas_cumprod64.astype(np.float32)
 

@@ -31,7 +31,8 @@ NVCC_FLAGS = (
 )
 
 # every csrc/<name>.cu the main path launches
-KERNELS = ("temporal_conv", "flash_attention", "flash_attention_bwd", "fused_mha", "relpos_mha")
+KERNELS = ("temporal_conv", "flash_attention", "flash_attention_bwd", "fused_mha", "relpos_mha",
+           "geglu")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -11,7 +11,14 @@
 * ``cross_attention_packed`` on packed heads, q (B, N, H·D) over a shared
   context k/v (B, S, H·D): on a CUDA tensor S < ``FLASH_MIN_KV`` goes to
   the packed cross-attention kernel, longer contexts fold and go to flash;
-  CPU tensors take the plain path.
+  CPU tensors take the plain path;
+* ``temporal_attention_packed`` on sample-major (B·F, N, H·D), attention
+  across the F frame rows of each sample: on a CUDA tensor F <
+  ``FLASH_MIN_KV`` goes to the frame-axis kernel; longer frame axes and CPU
+  tensors swap the frame and token axes and take ``self_attention_packed``.
+  No model calls it (the JAX package's models do not either: its
+  ``TemporalTransformer`` transposes once and runs ``self_attention_packed``,
+  which measured faster on the TPU).
 
 Every entry is differentiable: a CUDA tensor that needs a gradient runs the
 same kernel as the forward of its ``torch.autograd.Function`` (flash
@@ -24,7 +31,9 @@ from __future__ import annotations
 
 from t2v_torch.kernels.flash_attention import flash_attention
 from t2v_torch.kernels.flash_attention import flash_attention_plain as attention_plain
-from t2v_torch.kernels.fused_mha import fused_cross_mha, fused_self_mha
+from t2v_torch.kernels.fused_mha import fused_cross_mha, fused_self_mha, fused_temporal_mha
+from t2v_torch.kernels.fused_mha import swap_frame_axis as _swap_frame_axis
+from t2v_torch.kernels.fused_mha import unswap_frame_axis as _unswap_frame_axis
 
 FLASH_MIN_KV = 512
 
@@ -66,3 +75,15 @@ def cross_attention_packed(q, k, v, heads: int, scale: float | None = None):
         return fused_cross_mha(q, k, v, heads, scale)
     unfold = lambda t, length: t.reshape(b, length, heads, hd // heads)
     return attention_mh(unfold(q, n), unfold(k, s), unfold(v, s), scale).reshape(b, n, hd)
+
+
+def temporal_attention_packed(q, k, v, heads: int, f: int, scale: float | None = None):
+    """Self-attention across the frame axis of sample-major (B·F, N, H·D)
+    tensors, staying in the spatial token layout: rows i·F .. (i+1)·F - 1
+    are sample i's frames, and every spatial token and head attends across
+    them."""
+    n = q.shape[1]
+    if q.is_cuda and f < FLASH_MIN_KV:
+        return fused_temporal_mha(q, k, v, heads, f, scale)
+    swap = lambda t: _swap_frame_axis(t, f)
+    return _unswap_frame_axis(self_attention_packed(swap(q), swap(k), swap(v), heads, scale), n)

@@ -142,30 +142,40 @@ def _make(d: BlockDesc, cfg: ModelScopeUNetConfig) -> nn.Module:
     raise ValueError(d.kind)
 
 
-def count_kernel_sites(cfg: ModelScopeUNetConfig, frames: int, height: int, width: int) -> dict:
+def count_kernel_sites(cfg: ModelScopeUNetConfig, frames: int, height: int, width: int,
+                       cached: bool = False, cache_split: int = 1) -> dict:
     """Kernel launches of one UNet call with a (B, frames, height, width, C)
     latent at full self-attention: TemporalConvBlocks x 4 layers, spatial
     self-attention with >= 512 tokens on the flash kernel, the rest of the
     self-attention (spatial below 512 tokens, both self-attentions of every
-    temporal transformer) on the packed short-sequence kernel."""
+    temporal transformer) on the packed short-sequence kernel. ``cached``
+    counts a DeepCache shallow call instead (``deep_feature`` given): the
+    first ``cache_split`` encoder entries and the last ``cache_split``
+    decoder entries, without the middle."""
     from t2v_torch.kernels.attention import FLASH_MIN_KV
 
     topo = build_topology(cfg)
+    n_dec = len(topo.decoder)
+    entries = [*((e, not cached or i < cache_split) for i, e in enumerate(topo.encoder)),
+               (topo.middle, not cached),
+               *((e, not cached or i >= n_dec - cache_split) for i, e in enumerate(topo.decoder))]
     counts = {"temporal_conv": 0, "flash_attention": 0, "fused_self_mha": 0}
     tokens = height * width
-    for entry in (*topo.encoder, topo.middle, *topo.decoder):
+    for entry, runs in entries:
         for d in entry:
-            if d.kind == "res":
+            if d.kind == "downsample":
+                tokens //= 4
+            elif d.kind == "upsample":
+                tokens *= 4
+            elif not runs:
+                continue
+            elif d.kind == "res":
                 counts["temporal_conv"] += 4
             elif d.kind == "spatial":
                 key = "flash_attention" if tokens >= FLASH_MIN_KV else "fused_self_mha"
                 counts[key] += 1
             elif d.kind == "temporal":
                 counts["fused_self_mha" if frames < FLASH_MIN_KV else "flash_attention"] += 2
-            elif d.kind == "downsample":
-                tokens //= 4
-            elif d.kind == "upsample":
-                tokens *= 4
     return counts
 
 
@@ -211,7 +221,14 @@ class UNetSD(nn.Module):
         bf, h, w, c = x.shape
         return mod(x.reshape(b, f, h, w, c)).reshape(bf, h, w, c)
 
-    def forward(self, x, t, context):
+    def forward(self, x, t, context, *, deep_feature=None, return_deep: bool = False,
+                cache_split: int = 1):
+        """``return_deep`` / ``deep_feature`` are the DeepCache hooks: the
+        UNet splits after its first ``cache_split`` encoder entries. A full
+        call with ``return_deep=True`` returns (output, deep feature), the
+        activation entering the last ``cache_split`` decoder entries; a call
+        given that feature as ``deep_feature`` skips the deep trunk and runs
+        only the shallow encoder head and decoder tail."""
         b, f, h, w, _ = x.shape
         dtype = self.out[2].weight.dtype
         e = B.sinusoidal_embedding(t, self.cfg.dim).to(dtype)
@@ -222,17 +239,29 @@ class UNetSD(nn.Module):
         x = x.to(dtype).reshape(b * f, h, w, x.shape[-1])
 
         topo = self.topology
+        cached = deep_feature is not None
+        n_dec = len(topo.decoder)
+        split = cache_split if (cached or return_deep) else 0
         xs = []
-        for entry in topo.encoder:
+        for entry in topo.encoder[:split] if cached else topo.encoder:
             for d in entry:
                 x = self._run_block(d, x, e_f, ctx_f, b, f)
             xs.append(x)
-        for d in topo.middle:
-            x = self._run_block(d, x, e_f, ctx_f, b, f)
-        for entry in topo.decoder:
+        deep = None
+        if cached:
+            x = deep_feature.to(dtype)
+        else:
+            for d in topo.middle:
+                x = self._run_block(d, x, e_f, ctx_f, b, f)
+        for di, entry in enumerate(topo.decoder[n_dec - split:] if cached else topo.decoder):
+            if return_deep and not cached and di == n_dec - split:
+                deep = x
             x = torch.cat([x, xs.pop()], dim=-1)
             for d in entry:
                 x = self._run_block(d, x, e_f, ctx_f, b, f)
 
         x = self.out[2](self.out[0](x))
-        return x.reshape(b, f, h, w, self.cfg.out_dim)
+        out = x.reshape(b, f, h, w, self.cfg.out_dim)
+        if return_deep and not cached:
+            return out, deep
+        return out

@@ -1,11 +1,15 @@
 """End-to-end ModelScope text2video pipeline of the port.
 
-The PyTorch counterpart of the JAX package's ``pipeline/pipeline.py`` on
-its default path: text encode -> fused-CFG DDIM_Gaussian step loop ->
-frame-batched VAE decode -> uint8 RGB frames. Everything runs on one
-device, the card unless the caller asks for the CPU. Seed policy: the
-request's seed, ``-1`` resolved to a fresh one, ``seed + batch_index`` per
-batch.
+The PyTorch counterpart of the JAX package's ``pipeline/pipeline.py``: text
+encode -> fused-CFG step loop of any registered sampler -> frame-batched
+VAE decode -> uint8 RGB frames. ``infer`` also answers vid2vid (source
+latents from ``compute_latents``, re-noised to the strength), img2vid
+inpainting (``build_inpainting_inputs``: keyframed mask weights, masked
+start, optional per-step blend), DeepCache requests, and windowed requests
+whose callback runs between steps and may raise to interrupt or skip.
+Everything runs on one device, the card unless the caller asks for the
+CPU. Seed policy: the request's seed, ``-1`` resolved to a fresh one,
+``seed + batch_index`` per batch.
 
 ``random_init`` builds seeded random weights (no checkpoint needed) with
 the JAX package's zero-initialised leaves; ``from_jax`` loads the JAX
@@ -17,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import torch
@@ -31,11 +36,13 @@ from t2v_torch.core.config import (
     sanity_check_args,
 )
 from t2v_torch.core.dtypes import Policy
+from t2v_torch.diffusion import deepcache as deepcache_mod
 from t2v_torch.diffusion.sampling import sample_loop
 from t2v_torch.diffusion.schedules import DiffusionSchedule
 from t2v_torch.io import convert
 from t2v_torch.models.modelscope_unet import UNetSD
 from t2v_torch.models.vae import AutoencoderKL, decode_uint8, encode_latents
+from t2v_torch.pipeline.keyframes import KeyFrameSeries
 from t2v_torch.text.clip import CLIPTextTransformer
 from t2v_torch.text.encoder import TextEncoder
 from t2v_torch.text.tokenizer import CLIPTokenizer
@@ -232,19 +239,70 @@ class ModelScopePipeline:
         """(F, h, w, 4) scaled latents -> (F, H, W, 3) uint8 RGB."""
         return decode_latents(self.vae, self.vae_cfg, latents, SCALE_FACTOR)
 
+    def build_inpainting_inputs(
+        self,
+        image_rgb: np.ndarray,
+        args: T2VArgs,
+        generator: torch.Generator | None = None,
+        noise: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """img2vid: (masked_latents, mask, image_latents), each (1, F, h, w, 4)
+        float32. The source image (H, W, 3 uint8) is encoded once per frame;
+        frame i's mask weight comes from the keyframe string
+        ``args.inpainting_weights``; the start is source * (1 - mask) + noise
+        * mask. ``noise`` is drawn from ``generator`` (by default one seeded
+        with the request's seed) when not given; ``image_latents`` feed the
+        progressive per-step blend."""
+        ss = _spatial_scale(self.vae_cfg)
+        lat_h, lat_w = args.height // ss, args.width // ss
+        keys = KeyFrameSeries(args.frames, args.seed, max(args.inpainting_frames, 1))
+        weights = keys.inpainting_weights(args.inpainting_weights)
+
+        img = np.asarray(image_rgb, np.float32) / 255.0 * 2.0 - 1.0
+        image_latents = self.compute_latents(np.repeat(img[None], args.frames, axis=0))
+        mask = torch.from_numpy(
+            np.broadcast_to(weights.reshape(1, -1, 1, 1, 1), (1, args.frames, lat_h, lat_w, 4))
+            .astype(np.float32)).to(self.device)
+        if noise is None:
+            if generator is None:
+                generator = rng_lib.generator(rng_lib.resolve_seed(args.seed), self.device)
+            noise = torch.randn(mask.shape, generator=generator, device=self.device)
+        masked = image_latents * (1 - mask) + noise.to(self.device) * mask
+        return masked, mask, image_latents
+
     def infer(
         self,
         args: T2VArgs,
         *,
+        latents: torch.Tensor | None = None,
+        mask: torch.Tensor | None = None,
+        image_latents: torch.Tensor | None = None,
+        skip_steps: int = 0,
+        is_vid2vid: bool = False,
+        callback: Callable[[int], None] | None = None,
+        callback_interval: int | None = None,
         batch_index: int = 0,
+        inpaint_mode: str = "initial_only",
+        deep_cache_interval: int = 1,
         noise: torch.Tensor | None = None,
+        step_noise=None,
+        inpaint_noise=None,
     ) -> InferResult:
-        """Answer one request on the default (non-windowed) DDIM_Gaussian
-        txt2vid path. ``noise`` replaces the seeded starting latent (tests
-        hand both packages the same numpy noise)."""
+        """Answer one request with ``args.sampler`` over ``args.steps -
+        skip_steps`` steps. ``latents`` with ``is_vid2vid`` is a vid2vid
+        source (re-noised to ``args.strength``); ``latents`` without it a
+        masked start, which with ``mask`` and ``image_latents`` and an
+        ``inpaint_mode`` of 'progressive' or 'lvdm_static' is blended every
+        step. ``deep_cache_interval`` > 1 runs DeepCache on a txt2vid request
+        of a single-state sampler (others run exact). ``callback(done)`` runs
+        after every ``callback_interval`` steps and after the last; an
+        exception it raises (``core.state.InterruptedException``) stops the
+        request. ``noise``, ``step_noise[i]`` and ``inpaint_noise[i]`` replace
+        the seeded draws (tests hand both packages the same numpy noise)."""
         sanity_check_args(args)
         seed = rng_lib.resolve_seed(args.seed)
         batch_seed = rng_lib.batch_seed(seed, batch_index) if args.seed != -1 else seed
+        steps = args.steps - skip_steps
         ss = _spatial_scale(self.vae_cfg)
         shape = (1, args.frames, args.height // ss, args.width // ss, 4)
         dev = self.device
@@ -252,7 +310,7 @@ class ModelScopePipeline:
         t0 = time.perf_counter()
         self.text_encoder.comma_backtrack = args.comma_padding_backtrack
         self.text_encoder.enable_emphasis = args.enable_emphasis
-        conditioning = self.text_encoder.encode_request(args.prompt, args.n_prompt, args.steps)
+        conditioning = self.text_encoder.encode_request(args.prompt, args.n_prompt, steps)
         _sync(dev)
         t_text = time.perf_counter() - t0
 
@@ -260,14 +318,27 @@ class ModelScopePipeline:
         gen = rng_lib.generator(batch_seed, dev)
         if noise is None:
             noise = rng_lib.latent_noise(gen, shape, dev)
+        on_dev = lambda t: None if t is None else t.to(device=dev, dtype=torch.float32)
         unet = self.unet
-        x0 = sample_loop(
-            lambda x, t, ctx: unet(x, t, ctx), self.schedule, steps=args.steps, shape=shape,
-            cond=conditioning.cond, uncond=conditioning.uncond,
+        common = dict(
+            steps=steps, shape=shape, cond=conditioning.cond, uncond=conditioning.uncond,
             guidance_scale=args.cfg_scale, eta=args.eta, sampler_name=args.sampler,
-            generator=gen, noise=noise.to(dev), device=dev,
-            parameterization=self.unet_cfg.parameterization,
+            generator=gen, noise=noise.to(dev), step_noise=step_noise,
+            parameterization=self.unet_cfg.parameterization, callback=callback,
+            callback_interval=callback_interval, device=dev,
         )
+        if (deep_cache_interval > 1 and latents is None and mask is None
+                and args.sampler in deepcache_mod.SAMPLERS):
+            x0 = deepcache_mod.sample_loop_deepcache(
+                lambda x, t, ctx: unet(x, t, ctx, return_deep=True),
+                lambda x, t, ctx, feat: unet(x, t, ctx, deep_feature=feat),
+                self.schedule, interval=deep_cache_interval, **common)
+        else:
+            x0 = sample_loop(
+                lambda x, t, ctx: unet(x, t, ctx), self.schedule, latents=on_dev(latents),
+                is_vid2vid=is_vid2vid, strength=args.strength, mask=on_dev(mask),
+                image_latents=on_dev(image_latents), inpaint_mode=inpaint_mode,
+                inpaint_noise=inpaint_noise, **common)
         _sync(dev)
         t_sample = time.perf_counter() - t0
 

@@ -20,6 +20,7 @@ from t2v.models import blocks as JB
 from t2v_torch.io import convert
 from t2v_torch.models import blocks as TB
 from t2v_torch.models.modelscope_unet import BlockDesc
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

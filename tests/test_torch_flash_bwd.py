@@ -29,6 +29,7 @@ from t2v_torch.kernels import flash_attention as tflash
 from t2v_torch.kernels import fused_mha as tfused
 from t2v_torch.kernels import relpos_mha as trelpos
 from t2v_torch.kernels import temporal_conv as ttc
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 2e-5
 # (B, N, S, D, scale)

@@ -1,8 +1,9 @@
 """Guards of the PyTorch port: it imports nothing of JAX, flax or the JAX
-package; its entry points refuse CUDA on a host without a card; its kernel
-wrappers import on a CPU-only host and refuse what their kernels do not
-take; its own copies of the JAX package's host modules (configs, schedules,
-the WebVid dataset, the safetensors reader) agree with them.
+package, nor pandas (the GPU host has none); its entry points refuse CUDA on
+a host without a card; its kernel wrappers import on a CPU-only host and
+refuse what their kernels do not take; its own copies of the JAX package's
+host modules (configs, schedules, the WebVid dataset, the safetensors
+reader, the job state, the keyframe DSL) agree with them.
 """
 
 import ast
@@ -29,9 +30,10 @@ from t2v_torch.kernels import flash_attention as tflash
 from t2v_torch.kernels import fused_mha as tfused
 from t2v_torch.kernels import relpos_mha as trelpos
 from t2v_torch.kernels import temporal_conv as ttc
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "t2v")
+FORBIDDEN = ("jax", "flax", "t2v", "pandas")
 
 
 def _port_sources():
@@ -317,6 +319,36 @@ def test_safetensors_reader_copy_matches_jax():
     assert {k: str(v) for k, v in tst._DTYPES.items()} == {k: str(v) for k, v in jst._DTYPES.items()}
 
 
+def test_job_state_copy_matches_jax():
+    from t2v.core import state as jstate
+    from t2v_torch.core import state as tstate
+
+    for name in ("JobState", "InterruptedException", "SkippedException"):
+        assert inspect.getsource(getattr(tstate, name)) == inspect.getsource(getattr(jstate, name))
+    job = tstate.JobState()
+    job.begin_job(0, 2, 20)
+    job.step_callback(5)
+    job.interrupt()
+    with pytest.raises(tstate.InterruptedException):
+        job.step_callback(6)
+    assert job.sampling_step == 6 and job.job == "Batch 1 out of 2"
+
+
+def test_keyframes_copy_imports_without_pandas_and_keeps_the_evaluator():
+    from t2v.pipeline import keyframes as jkf
+    from t2v_torch.pipeline import keyframes as tkf
+
+    for name in ("safe_eval", "parse_key_frames", "_sanitize", "_is_number"):
+        assert inspect.getsource(getattr(tkf, name)) == inspect.getsource(getattr(jkf, name))
+    code = ("import sys; sys.modules['pandas'] = None\n"
+            "from t2v_torch.pipeline.keyframes import KeyFrameSeries\n"
+            "w = KeyFrameSeries(8, 1, 4).inpainting_weights('0:(0), 7:(1)')\n"
+            "assert abs(float(w[7]) - 1.0) < 1e-6, w\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_wrappers_take_their_function_only_for_tensors_that_need_a_gradient():
     x = torch.zeros(2, 3)
     assert not _build.needs_grad(x, None, 3)
@@ -325,7 +357,7 @@ def test_wrappers_take_their_function_only_for_tensors_that_need_a_gradient():
         assert not _build.needs_grad(x.clone().requires_grad_())
     # CPU tensors never reach a kernel: no launch is counted, with or without gradients
     counters = (tflash.COUNTER, tflash.DKV_COUNTER, tflash.DQ_COUNTER, tfused.COUNTER,
-                tfused.CROSS_COUNTER, trelpos.COUNTER, ttc.COUNTER)
+                tfused.CROSS_COUNTER, tfused.TEMPORAL_COUNTER, trelpos.COUNTER, ttc.COUNTER)
     before = [c.count for c in counters]
     q = torch.randn(2, 8, 16, requires_grad=True)
     tflash.flash_attention(q, q, q).sum().backward()

@@ -22,6 +22,7 @@ from t2v_torch.kernels import attention as tatt
 from t2v_torch.kernels import temporal_conv as ttc
 from t2v_torch.kernels.flash_attention import flash_attention
 from t2v_torch.kernels.fused_mha import fused_self_mha
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

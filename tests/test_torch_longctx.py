@@ -26,6 +26,7 @@ from t2v_torch.kernels.fused_mha import fused_self_mha
 from t2v_torch.models import blocks as TB
 from t2v_torch.models.modelscope_unet import UNetSD, count_kernel_sites
 from t2v_torch.pipeline.pipeline import decode_chunk_frames
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 

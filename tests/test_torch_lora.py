@@ -24,6 +24,7 @@ from t2v_torch.io import convert, safetensors_io
 from t2v_torch.models.modelscope_unet import UNetSD
 from t2v_torch.pipeline import lora as tlora
 from t2v_torch.pipeline.pipeline import init_weights
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = ModelScopeUNetConfig().tiny()
 ATOL = 1e-6

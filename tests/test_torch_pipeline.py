@@ -40,6 +40,7 @@ from t2v_torch.diffusion.sampling import cfg_combine
 from t2v_torch.diffusion.schedules import DiffusionSchedule
 from t2v_torch.models.modelscope_unet import UNetSD
 from t2v_torch.pipeline.pipeline import ModelScopePipeline, init_weights
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_schedule_and_plan_match_jax():

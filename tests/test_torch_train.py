@@ -43,6 +43,7 @@ from t2v_torch.models.modelscope_unet import UNetSD
 from t2v_torch.parallel import train as ttrain
 from t2v_torch.pipeline import lora as tlora
 from t2v_torch.pipeline.pipeline import init_weights
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = ModelScopeUNetConfig().tiny()
 PARAMETERIZATIONS = ("eps", "x0", "v")
@@ -77,22 +78,46 @@ def setup():
 @pytest.fixture(scope="module")
 def jax_losses_and_grads(setup):
     """{parameterization: (loss, d/d base weights, d/d LoRA)} from one
-    jitted JAX program."""
+    jitted JAX program, compiled once: the LoRA-merged UNet forward and its
+    VJP for a cotangent given as an argument. The three targets share the
+    prediction, so a first call gives it, the JAX ``diffusion_loss`` handed
+    that prediction gives each target's loss and cotangent d loss / d
+    prediction (its own draw of t and noise, and the xt it builds, are
+    checked against the ones the UNet was fed), and one more call each
+    gives the gradients."""
     model = JUNet(cfg=JCfg().tiny())
     tables = jtrain.schedule_tables(JSchedule.linear_sd(1000))
     batch = {k: jnp.asarray(v) for k, v in setup["batch"].items()}
+    t, noise = setup["draw"]
+    sa = np.asarray(tables["sqrt_alphas_cumprod"])[t].reshape(-1, 1, 1, 1, 1)
+    s1 = np.asarray(tables["sqrt_one_minus_alphas_cumprod"])[t].reshape(-1, 1, 1, 1, 1)
+    xt = jnp.asarray(sa * setup["batch"]["latents"] + s1 * noise, jnp.float32)
+    tt = jnp.asarray(t, jnp.float32)
 
-    def all_three(params, lora):
-        def loss_fn(p, lo, kind):
-            merged = jlora.apply_lora(p, lo, setup["jidx"], 1.5)
-            return jtrain.diffusion_loss(model.apply, merged, tables, batch, setup["key"], kind)
+    def forward_and_vjp(params, lora, cotangent):
+        pred, vjp = jax.vjp(
+            lambda p, lo: model.apply(jlora.apply_lora(p, lo, setup["jidx"], 1.5), xt, tt,
+                                      batch["context"]), params, lora)
+        return pred, vjp(cotangent)
 
-        return [jax.value_and_grad(lambda p, lo: loss_fn(p, lo, kind), argnums=(0, 1))(params, lora)
-                for kind in PARAMETERIZATIONS]
+    program = jax.jit(forward_and_vjp)
+    args = (setup["jparams"], setup["lora"])
+    pred, _ = program(*args, jnp.zeros_like(xt))
 
-    out = jax.jit(all_three)(setup["jparams"], setup["lora"])
-    return {kind: (float(loss), jax.device_get(g_full), jax.device_get(g_lora))
-            for kind, (loss, (g_full, g_lora)) in zip(PARAMETERIZATIONS, out)}
+    def loss_of(pr, kind):
+        def fed(params, x, ti, ctx):
+            np.testing.assert_allclose(np.asarray(x), np.asarray(xt), rtol=1e-6, atol=1e-6)
+            np.testing.assert_array_equal(np.asarray(ti), np.asarray(tt))
+            return pr
+
+        return jtrain.diffusion_loss(fed, None, tables, batch, setup["key"], kind)
+
+    out = {}
+    for kind in PARAMETERIZATIONS:
+        loss, cotangent = jax.value_and_grad(lambda pr: loss_of(pr, kind))(pred)
+        _, (g_full, g_lora) = program(*args, cotangent)
+        out[kind] = (float(loss), jax.device_get(g_full), jax.device_get(g_lora))
+    return out
 
 
 def _port_loss_and_grads(setup, kind):

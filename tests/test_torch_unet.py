@@ -21,6 +21,7 @@ from t2v_torch.io import convert
 from t2v_torch.models import blocks as TB
 from t2v_torch.models.modelscope_unet import UNetSD, build_topology, count_kernel_sites
 from t2v_torch.pipeline.pipeline import init_weights
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = ModelScopeUNetConfig().tiny()
 FRAMES = 3

@@ -33,6 +33,7 @@ from t2v_torch.pipeline.pipeline import DECODE_CHUNK, compute_latents
 from t2v_torch.text.clip import CLIPTextTransformer
 from t2v_torch.text.encoder import TextEncoder
 from t2v_torch.text.tokenizer import CLIPTokenizer
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

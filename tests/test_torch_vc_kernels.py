@@ -23,6 +23,7 @@ from t2v_torch.kernels import attention as tatt
 from t2v_torch.kernels.flash_attention import flash_attention
 from t2v_torch.kernels.fused_mha import fused_cross_mha, fused_cross_mha_plain, fused_self_mha
 from t2v_torch.kernels.relpos_mha import relpos_mha, relpos_mha_plain
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 

@@ -47,6 +47,7 @@ from t2v_torch.models.videocrafter_unet import VideoCrafterUNet
 from t2v_torch.pipeline.pipeline import init_weights
 from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
 from t2v_torch.text.clip import HFCLIPTextModel
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -87,8 +88,8 @@ def test_ddim_step_matches_jax(i, eta):
 
 def test_ddim_is_registered_with_full_channel_cfg():
     assert get_sampler("DDIM") is ddim and ddim.CFG_COMBINE == jddim.CFG_COMBINE == "full"
-    with pytest.raises(ValueError, match="not ported"):
-        get_sampler("UniPC")
+    with pytest.raises(ValueError, match="does not exist"):
+        get_sampler("DDPM")
 
 
 @pytest.mark.parametrize("key", ["crossattn", "concat", "hybrid", "adm", "crossattn-adm", None])

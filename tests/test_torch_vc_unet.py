@@ -26,6 +26,7 @@ from t2v_torch.io import convert
 from t2v_torch.models import blocks as TB
 from t2v_torch.models import videocrafter_unet as tvc
 from t2v_torch.pipeline.pipeline import init_weights
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 CFG = VideoCrafterUNetConfig().tiny()
