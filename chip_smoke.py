@@ -7,7 +7,9 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. build every CUDA kernel from ``t2v_torch/csrc`` (one ``nvcc`` per
-   source, all started together) and print the build time;
+   source, all started together) and print the build time, and the
+   registers, spills and stack of every entry function of the redesigned
+   sources (``temporal_conv.cu``, ``fused_mha.cu``);
 2. check that each wrapper refuses malformed CUDA tensors, then hold each
    kernel against its plain PyTorch version on the card, in bf16, at every
    shape the driven paths give it (24-, 125- and 250-frame ModelScope,
@@ -15,7 +17,10 @@ and prints no result line):
    ragged ones; print the max error against the
    stated tolerance and the kernel's, the plain version's and, where one
    PyTorch call computes the same function, that library call's time (timed
-   here as a yardstick only: the port never calls it);
+   here as a yardstick only: the port never calls it), with the rate
+   reached, the share of the bound, the per-shape plan of the redesigned
+   kernels, their times before the redesign, and the temporal-conv layer's
+   split into activation pass and GEMM (torch.profiler);
 3. answer one request with a small ModelScope pipeline and one with a small
    VideoCrafter pipeline whose widths every kernel takes, in bf16 on the
    card, and hold their latents and frames against the same weights in
@@ -98,6 +103,55 @@ CFG = 9.0
 VC_T = 16         # frames of the VideoCrafter request
 VC_STEPS = 20
 
+# Shapes each kernel is held against its plain version at (the CPU tests of
+# the kernels' plans read these lists too).
+# Temporal conv (B, F, HW, C): the four UNet levels at 24 frames with CFG,
+# a ragged one (checked, not timed); then the long videos, for which the
+# TPU package has a second, frame-chunked kernel: the 125-frame request's
+# levels, every 250-frame level, and a ragged one
+CONV_RAGGED = (1, 5, 37, 128)
+CONV_SHAPES = [(2, T, 1024, 320), (2, T, 256, 640), (2, T, 64, 1280), (2, T, 16, 1280),
+               CONV_RAGGED]
+CONV_LONG_SHAPES = [(2, T_LONG, 1024, 320), (2, T_LONG, 256, 640), (2, T_LONG, 64, 1280),
+                    (2, T_LONG, 16, 1280), (2, 250, 1024, 320), (2, 250, 256, 640),
+                    (2, 250, 64, 1280), (2, 250, 16, 1280), (1, 131, 9, 64)]
+# Packed self-attention (B, N, heads, D). ModelScope (D = 64): spatial
+# self-attention at 16x16, 8x8 and 4x4 (2 x 24 and 2 x 125 frames), temporal
+# self-attention over 24 and 125 frames at every level and over 250 at the
+# 32x32 and 8x8 ones; VideoCrafter (8 heads, D = 80 and 160): spatial
+# self-attention at 16x16, 8x8 and 4x4; ragged ones at every head dim, and
+# two whose K/V exceed shared memory and stream (D = 160, 450 keys)
+SELF_MHA_RAGGED = [(7, 13, 3, 64), (3, 50, 2, 40), (7, 13, 3, 80), (5, 29, 2, 160),
+                   (2, 450, 2, 160), (132, 450, 2, 160)]
+SELF_MHA_CASES = [(48, 256, 10, 64), (48, 64, 20, 64), (48, 16, 20, 64), (2048, 24, 5, 64),
+                  (2048, 24, 8, 64), (512, 24, 10, 64), (128, 24, 20, 64), (32, 24, 20, 64),
+                  (250, 256, 10, 64), (250, 64, 20, 64), (250, 16, 20, 64),
+                  (2048, 125, 5, 64), (2048, 125, 8, 64), (512, 125, 10, 64), (128, 125, 20, 64),
+                  (32, 125, 20, 64), (2048, 250, 5, 64), (128, 250, 20, 64),
+                  (32, 256, 8, 80), (32, 64, 8, 160), (32, 16, 8, 160), *SELF_MHA_RAGGED]
+# Packed cross-attention (B, N, S, heads, D): VideoCrafter's spatial
+# cross-attention, 16 frames of tokens merged into the query rows over the
+# 77-token context, at its four levels; a ragged one; and one context too
+# long for shared memory, which takes the packed self kernel's body
+CROSS_MHA_RAGGED = [(3, 1000, 50, 5, 40), (2, 300, 200, 2, 64)]
+CROSS_MHA_CASES = [(2, 16384, 77, 8, 40), (2, 4096, 77, 8, 80), (2, 1024, 77, 8, 160),
+                   (2, 256, 77, 8, 160), *CROSS_MHA_RAGGED]
+# Frame-axis attention (B samples, F frames, N tokens, heads, D): every
+# ModelScope level at 24, 125 and 250 frames (CFG batch 2, 64-wide heads),
+# the 1024x576 top level (72x128 latent), and ragged ones at the other
+# head dims
+TEMPORAL_MHA_RAGGED = [(2, 5, 7, 3, 40), (2, 5, 7, 2, 80), (2, 5, 7, 2, 160),
+                       (1, 37, 13, 2, 64)]
+TEMPORAL_MHA_CASES = [(2, f, n, h, 64) for f in (T, T_LONG, 250)
+                      for n, h in ((1024, 5), (256, 10), (64, 20), (16, 20))]
+TEMPORAL_MHA_CASES += [(2, T, 9216, 5, 64), *TEMPORAL_MHA_RAGGED]
+
+# the time of each redesigned kernel at its dominant shape before its
+# redesign (PERF.md section 6, measured on an "NVIDIA H100 80GB HBM3,
+# 700.00 W"), printed beside this run's
+BEFORE_REDESIGN_MS = {"temporal_conv": 0.6516, "temporal_conv_long": 3.1702,
+                      "fused_self_mha": 0.3901, "fused_temporal_mha": 0.2294}
+
 
 def _fail(msg: str) -> None:
     raise RuntimeError(msg)
@@ -138,14 +192,23 @@ class KernelRecord:
         self.max_abs_err = 0.0
         self.main = None  # timings at that path's dominant shape
 
-    def timed(self, shape, ms, plain_ms, library_ms, flops, nbytes, main=False) -> None:
+    def timed(self, shape, ms, plain_ms, library_ms, flops, nbytes, main=False, plan="") -> None:
         """Print one launch's time at ``shape`` beside its bound, the plain
         version's and the library call's (None: no PyTorch call computes the
-        function); keep it for the JSON line when it is the dominant shape."""
+        function), the rate it reached in the bound's unit and its share of
+        the bound, and at the dominant shape of a redesigned kernel its time
+        before the redesign; keep it for the JSON line when it is the
+        dominant shape."""
         bound, by = _bound_ms(flops, nbytes)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if by == "operations"
+                else f"{nbytes / ms / 1e9:.3f} TB/s")
+        before = BEFORE_REDESIGN_MS.get(self.name) if main else None
         print(f"  time {self.name:18s} {str(tuple(shape)):26s} kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {lib}, bound {bound:.4f} ms ({by})", flush=True)
+              f"{plain_ms:.4f} ms, library {lib}, bound {bound:.4f} ms ({by}); {rate}, "
+              f"{100 * bound / ms:.1f}% of the bound"
+              + (f"; before the redesign {before:.4f} ms ({before / ms:.2f}x)" if before else "")
+              + (f"; plan {plan}" if plan else ""), flush=True)
         if main:
             self.main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                          "library_ms": library_ms, "shape": list(shape)}
@@ -213,15 +276,19 @@ def _chain_layers(g, c, n=4):
 
 
 def _time_temporal_layer(rec, tc, x, layer, main) -> None:
-    """One stats-emitting layer (three of every four launches) beside its
-    plain version; the library yardstick is one matmul of the pre-activated,
-    frame-shifted input (B*F*HW, 3C) by the stacked taps (3C, C)."""
+    """One stats-emitting layer (three of every four launches) on the route
+    the chain takes (the raw sums of the layer input, finalised in the
+    kernel) beside its plain version; the library yardstick is one matmul
+    of the pre-activated, frame-shifted input (B*F*HW, 3C) by the stacked
+    taps (3C, C)."""
     import torch
 
     b, f, hw, c = x.shape
-    fin = tc.finalize_stats(tc.input_stats(x), f * hw, 1e-5)
+    raw = tc.input_stats(x)
+    fin = tc.finalize_stats(raw, f * hw, 1e-5)
     s, bias, w, cb = layer
-    ms = _time_ms(lambda: tc.temporal_conv_layer(x, fin, s, bias, w, cb), 10)
+    call = lambda: tc.temporal_conv_layer(x, raw, s, bias, w, cb, raw_eps=1e-5)  # noqa: E731
+    ms = _time_ms(call, 10)
     plain_ms = _time_ms(lambda: tc.layer_plain(x, fin, s, bias, w, cb), 3)
     a = torch.cat([
         torch.nn.functional.silu(
@@ -233,8 +300,55 @@ def _time_temporal_layer(rec, tc, x, layer, main) -> None:
     w_cat = w.reshape(3 * c, c)
     lib_ms = _time_ms(lambda: torch.matmul(a_cat, w_cat), 10)
     m = b * f * hw
+    p = tc.layer_plan(b, f, hw, c)
     rec.timed((b, f, hw, c), ms, plain_ms, lib_ms, 2.0 * m * 3 * c * c,
-              2 * m * c * 2 + 3 * c * c * 2, main=main)
+              2 * m * c * 2 + 3 * c * c * 2, main=main,
+              plan=f"tile {p.bm}x{p.bn} (last column tile {p.last_cols}), {p.stages} stages, "
+                   f"{p.smem_bytes} B, {p.blocks} blocks")
+    if main:
+        _split_temporal_layer(rec, x, call, 2.0 * m * 3 * c * c)
+
+
+def _host_us(fn, calls: int) -> float:
+    """Microseconds of host time a call of ``fn`` takes to return, with the
+    card's queue not yet full."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * host / calls
+
+
+def _split_temporal_layer(rec, x, call, flops) -> None:
+    """The device time of the layer call's three kernels (activation pass,
+    GEMM, statistics sum), from torch.profiler over five calls, and the
+    host time of one call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    host = _host_us(call, 20)
+    kernels = [(dev_ms / 5, name) for dev_ms, _, name in _device_kernels(prof)]
+    act = sum(t for t, name in kernels if "temporal_conv_act_kernel" in name)
+    gemm = sum(t for t, name in kernels if "temporal_conv_gemm_kernel" in name)
+    stats = sum(t for t, name in kernels if "temporal_conv_stats_kernel" in name)
+    total = act + gemm + stats
+    if total == 0:
+        print(f"  split {rec.name}: the profiler recorded no device time (not measured); "
+              f"host {host:.1f} us a call")
+        return
+    print(f"  split {rec.name:17s} {str(tuple(x.shape)):26s} activation pass {act:.4f} ms "
+          f"({100 * act / total:.1f}% of the layer's kernels), GEMM {gemm:.4f} ms "
+          f"({flops / gemm / 1e9:.1f} TFLOP/s), statistics sum {stats:.4f} ms: "
+          f"{total:.4f} ms of device time (torch.profiler); host {host:.1f} us a call",
+          flush=True)
 
 
 def check_temporal_conv(g) -> list[KernelRecord]:
@@ -245,32 +359,33 @@ def check_temporal_conv(g) -> list[KernelRecord]:
     rec = KernelRecord("temporal_conv", "t2v_torch/csrc/temporal_conv.cu",
                        "t2v/kernels/temporal_conv.py:197", "modelscope_24f")
     dev = "cuda"
-    # (B, F, HW, C): the four UNet levels at 24 frames with CFG, a ragged one
-    ragged = (1, 5, 37, 128)
-    shapes = [(2, T, 1024, 320), (2, T, 256, 640), (2, T, 64, 1280), (2, T, 16, 1280), ragged]
-    for b, f, hw, c in shapes:
+    for b, f, hw, c in CONV_SHAPES:
         x = torch.randn((b, f, hw, c), generator=g, device=dev).to(torch.bfloat16)
         layers = _chain_layers(g, c)
         got = tc.temporal_conv_chain(x, layers)
         want = tc.chain_plain(x, layers)
         torch.cuda.synchronize()
         _compare(rec, f"chain x{tuple(x.shape)}", got, want)
-        if (b, f, hw, c) != ragged:  # the ragged one is checked, not timed
+        if (b, f, hw, c) != CONV_RAGGED:  # the ragged one is checked, not timed
             _time_temporal_layer(rec, tc, x, layers[0], main=(hw, c) == (1024, 320))
 
-    # the long videos, for which the TPU package has a second, frame-chunked
-    # kernel: the 125-frame request's levels and every 250-frame level, on a
-    # stats-emitting layer (output and emitted statistics) and on the
-    # residual layer, each against layer_plain on the same inputs
+    # the long videos: the whole chain (the route the UNet runs, statistics
+    # carried as raw sums and finalised in the kernel) against chain_plain;
+    # a stats-emitting layer on finalised statistics (output and emitted
+    # statistics) and the residual layer, each against layer_plain on the
+    # same inputs
     long = KernelRecord("temporal_conv_long", "t2v_torch/csrc/temporal_conv.cu",
                         "t2v/kernels/temporal_conv.py:254", "modelscope_125f",
                         counter="temporal_conv")
-    long_shapes = [(2, T_LONG, 1024, 320), (2, T_LONG, 256, 640), (2, T_LONG, 64, 1280),
-                   (2, T_LONG, 16, 1280), (2, 250, 1024, 320), (2, 250, 256, 640),
-                   (2, 250, 64, 1280), (2, 250, 16, 1280), (1, 131, 9, 64)]
-    for b, f, hw, c in long_shapes:
+    for b, f, hw, c in CONV_LONG_SHAPES:
         x = torch.randn((b, f, hw, c), generator=g, device=dev).to(torch.bfloat16)
-        layer = _chain_layers(g, c, 1)[0]
+        layers = _chain_layers(g, c)
+        got = tc.temporal_conv_chain(x, layers)
+        want = tc.chain_plain(x, layers)
+        torch.cuda.synchronize()
+        _compare(long, f"chain x{tuple(x.shape)}", got, want)
+        del got, want
+        layer = layers[0]
         fin = tc.finalize_stats(tc.input_stats(x), f * hw, 1e-5)
         got, raw = tc.temporal_conv_layer(x, fin, *layer)
         want, raw_want = tc.layer_plain(x, fin, *layer)
@@ -403,6 +518,12 @@ def check_flash_bwd(g, fwd: KernelRecord) -> list[KernelRecord]:
     return [dkv, dq]
 
 
+def _mha_plan_note(p) -> str:
+    return (f"{p.pairs_per_block} pair(s) x {p.tiles_per_block} query tiles, {p.warps} warps, "
+            f"{p.kc}-row key chunks, {'resident' if p.resident else 'streamed'} K/V, "
+            f"{p.smem_bytes} B, {p.blocks} blocks")
+
+
 def check_fused_mha(g) -> list[KernelRecord]:
     import torch
     import torch.nn.functional as F
@@ -412,23 +533,12 @@ def check_fused_mha(g) -> list[KernelRecord]:
         fused_cross_mha_plain,
         fused_self_mha,
         fused_self_mha_plain,
+        self_mha_plan,
     )
 
     rec = KernelRecord("fused_self_mha", "t2v_torch/csrc/fused_mha.cu",
                        "t2v/kernels/fused_mha.py:52", "modelscope_24f")
-    # (B, N, heads, D). ModelScope (D = 64): spatial self-attention at 16x16,
-    # 8x8 and 4x4 (2 x 24 and 2 x 125 frames), temporal self-attention over
-    # 24 and 125 frames at every level and over 250 at the 32x32 and 8x8 ones;
-    # VideoCrafter (8 heads, D = 80 and 160): spatial self-attention at 16x16,
-    # 8x8 and 4x4; ragged ones at every head dim
-    ragged = [(7, 13, 3, 64), (3, 50, 2, 40), (7, 13, 3, 80), (5, 29, 2, 160)]
-    cases = [(48, 256, 10, 64), (48, 64, 20, 64), (48, 16, 20, 64), (2048, 24, 5, 64),
-             (2048, 24, 8, 64), (512, 24, 10, 64), (128, 24, 20, 64), (32, 24, 20, 64),
-             (250, 256, 10, 64), (250, 64, 20, 64), (250, 16, 20, 64),
-             (2048, 125, 5, 64), (2048, 125, 8, 64), (512, 125, 10, 64), (128, 125, 20, 64),
-             (32, 125, 20, 64), (2048, 250, 5, 64), (128, 250, 20, 64),
-             (32, 256, 8, 80), (32, 64, 8, 160), (32, 16, 8, 160), *ragged]
-    for b, n, h, d in cases:
+    for b, n, h, d in SELF_MHA_CASES:
         hd = h * d
         q, k, v = (torch.randn((b, n, hd), generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
@@ -437,26 +547,20 @@ def check_fused_mha(g) -> list[KernelRecord]:
         torch.cuda.synchronize()
         _compare(rec, f"x{(b, n, hd)} heads={h}", got, want)
         del got, want
-        if (b, n, h, d) in ragged:  # checked, not timed
+        if (b, n, h, d) in SELF_MHA_RAGGED:  # checked, not timed
             continue
         fold = lambda t: t.view(b, n, h, d).transpose(1, 2)
         ms = _time_ms(lambda: fused_self_mha(q, k, v, h), 20)
         plain_ms = _time_ms(lambda: fused_self_mha_plain(q, k, v, h), 3)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(fold(q), fold(k), fold(v)), 20)
         rec.timed((b, n, hd, h), ms, plain_ms, lib_ms, *_attn_flops_bytes(b, n, n, d, h),
-                  main=(b, n, h) == (48, 256, 10))
+                  main=(b, n, h) == (48, 256, 10),
+                  plan=_mha_plan_note(self_mha_plan(b, n, n, h, d)))
         _release()
 
     cross = KernelRecord("fused_cross_mha", "t2v_torch/csrc/fused_mha.cu",
                          "t2v/kernels/fused_mha.py:225", "videocrafter_16f")
-    # (B, N, S, heads, D): VideoCrafter's spatial cross-attention, 16 frames
-    # of tokens merged into the query rows over the 77-token context, at its
-    # four levels; a ragged one; and one context too long for shared memory,
-    # which takes the streaming kernel
-    ragged = [(3, 1000, 50, 5, 40), (2, 300, 200, 2, 64)]
-    cases = [(2, 16384, 77, 8, 40), (2, 4096, 77, 8, 80), (2, 1024, 77, 8, 160),
-             (2, 256, 77, 8, 160), *ragged]
-    for b, n, s, h, d in cases:
+    for b, n, s, h, d in CROSS_MHA_CASES:
         hd = h * d
         q = torch.randn((b, n, hd), generator=g, device="cuda").to(torch.bfloat16)
         k, v = (torch.randn((b, s, hd), generator=g, device="cuda").to(torch.bfloat16)
@@ -466,7 +570,7 @@ def check_fused_mha(g) -> list[KernelRecord]:
         torch.cuda.synchronize()
         _compare(cross, f"q{(b, n, hd)} kv{(b, s, hd)} heads={h}", got, want)
         del got, want
-        if (b, n, s, h, d) in ragged:  # checked, not timed
+        if (b, n, s, h, d) in CROSS_MHA_RAGGED:  # checked, not timed
             continue
         fold = lambda t: t.view(b, t.shape[1], h, d).transpose(1, 2)
         ms = _time_ms(lambda: fused_cross_mha(q, k, v, h), 20)
@@ -521,18 +625,11 @@ def check_temporal_mha(g) -> list[KernelRecord]:
     import torch.nn.functional as F
 
     from t2v_torch.kernels.attention import temporal_attention_packed
-    from t2v_torch.kernels.fused_mha import fused_temporal_mha_plain
+    from t2v_torch.kernels.fused_mha import fused_temporal_mha_plain, self_mha_plan
 
     rec = KernelRecord("fused_temporal_mha", "t2v_torch/csrc/fused_mha.cu",
                        "t2v/kernels/fused_mha.py:104", "modelscope_unet_capture")
-    # (B samples, F frames, N tokens, heads, D): every ModelScope level at 24,
-    # 125 and 250 frames (CFG batch 2, 64-wide heads), the 1024x576 top level
-    # (72x128 latent), and ragged ones at the other head dims
-    ragged = [(2, 5, 7, 3, 40), (2, 5, 7, 2, 80), (2, 5, 7, 2, 160), (1, 37, 13, 2, 64)]
-    levels = [(1024, 5), (256, 10), (64, 20), (16, 20)]
-    cases = [(2, f, n, h, 64) for f in (T, T_LONG, 250) for n, h in levels]
-    cases += [(2, T, 9216, 5, 64), *ragged]
-    for b, f, n, h, d in cases:
+    for b, f, n, h, d in TEMPORAL_MHA_CASES:
         hd = h * d
         q, k, v = (torch.randn((b * f, n, hd), generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
@@ -541,7 +638,7 @@ def check_temporal_mha(g) -> list[KernelRecord]:
         torch.cuda.synchronize()
         _compare(rec, f"x{(b * f, n, hd)} heads={h} F={f}", got, want)
         del got, want
-        if (b, f, n, h, d) in ragged or n == 16:  # checked, not timed
+        if (b, f, n, h, d) in TEMPORAL_MHA_RAGGED or n == 16:  # checked, not timed
             continue
         # the library yardstick: one SDPA on the 4-D (B, N*H, F, D) view of
         # the same memory (last dim contiguous, so the flash backend takes
@@ -555,7 +652,8 @@ def check_temporal_mha(g) -> list[KernelRecord]:
         plain_ms = _time_ms(lambda: fused_temporal_mha_plain(q, k, v, h, f), 3)
         lib_ms = _time_ms(lib, 10)
         rec.timed((b * f, n, hd, h), ms, plain_ms, lib_ms, *_attn_flops_bytes(b * n, f, f, d, h),
-                  main=(f, n) == (T, 1024))
+                  main=(f, n) == (T, 1024),
+                  plan=_mha_plan_note(self_mha_plan(b * n, f, f, h, d)))
         del q, k, v
         _release()
     return [rec]
@@ -605,6 +703,42 @@ def check_geglu(g) -> list[KernelRecord]:
     return [rec]
 
 
+# the sources of the redesigned kernels, whose every entry
+# function's registers, spills and stack the build prints
+REDESIGNED = ("temporal_conv", "fused_mha")
+
+
+def _kernel_label(mangled: str) -> str:
+    """``temporal_conv_gemm_kernel<128,320>`` from an Itanium-mangled name."""
+    import re
+
+    base = re.search(r"\d([a-z][a-z_]*_kernel)", mangled)
+    args = re.findall(r"Li(\d+)E", mangled)
+    args += [r for r in ("TokenRows", "FrameRows") if r in mangled]
+    return (base.group(1) if base else mangled[:60]) + (f"<{','.join(args)}>" if args else "")
+
+
+def _ptxas_report(log: str) -> list[str]:
+    """One line per entry function of an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    lines, name, spill = [], None, ""
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", ln)
+        if entry:
+            name = _kernel_label(entry.group(1))
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif name and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            smem = re.search(r"(\d+) bytes smem", ln)
+            lines.append(f"{name}: {regs.group(1) if regs else '?'} registers, "
+                         f"{smem.group(1) if smem else 0} B static shared memory "
+                         f"(dynamic: the plan's), {spill}")
+            name, spill = None, ""
+    return lines
+
+
 def build_kernels() -> float:
     from t2v_torch.kernels import _build
 
@@ -617,6 +751,9 @@ def build_kernels() -> float:
         print(f"  {name}: {len(regs) // 2} kernels, "
               + (" | ".join(regs[:2]) if regs else "(built before)")
               + (f" | SPILLS: {' | '.join(spills[:3])}" if spills else ""), flush=True)
+        if name in REDESIGNED:
+            for line in _ptxas_report(log):
+                print(f"    ptxas {line}", flush=True)
     print(f"build: {secs:.1f} s for {len(logs)} sources", flush=True)
     return secs
 
@@ -1583,7 +1720,8 @@ def _train_run(label, pipe, per_call: dict, *, lora_rank: int, ema_decay, steps:
 
 
 _CATEGORIES = (
-    ("temporal_conv kernel", ("temporal_conv_layer_kernel",)),
+    ("temporal_conv kernels", ("temporal_conv_gemm_kernel", "temporal_conv_act_kernel",
+                               "temporal_conv_stats_kernel")),
     ("flash_attention kernel", ("flash_fwd_kernel",)),
     ("flash backward kernels", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
     ("fused_self_mha kernel", ("packed_mha_kernel",)),

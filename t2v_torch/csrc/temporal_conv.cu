@@ -11,166 +11,529 @@
 // GroupNorm statistics stay global and exact across frame chunks and that
 // the neighbour frames beyond both ends of the video are zero AFTER the
 // activation. Both hold here by construction: the statistics arrive
-// finalised over the whole sample and leave as per-row-tile partials that
-// the caller sums over every tile, and an out-of-range tap writes zeros
-// into the A tile whatever frame the row tile sits in. Its halo operand
-// and chunk grid are not carried over.
+// finalised over the whole sample (or are finalised from its raw sums)
+// and leave as per-row-tile partials that a third launch sums over every
+// tile, and the frame padding is the zero fill
+// of out-of-range rows in the tensor-memory-accelerator (TMA) loads of the
+// already activated input. Its halo operand and chunk grid are not carried
+// over.
 //
-// What bounds it on the H100: at the UNet's shapes each layer is a GEMM of
-// M = F*HW rows (frame, token) per sample, K = 3*C, N = C: 2*M*3C*C flops
-// against ~2*M*C*2 bytes of activations, i.e. hundreds of flops per byte at
-// C >= 320 -- above the card's ~295 flop/byte ridge, so the tensor cores
-// bound it. The GroupNorm + SiLU prologue is elementwise work on the A
-// operand that would otherwise cost a full read and write of the tensor.
+// What bounds it on the H100: each layer is a GEMM of M = F*HW rows
+// (frame, token) per sample, K = 3*C (three frame taps), N = C:
+// 2*M*3C*C flops against ~2*M*C*2 bytes of activations, hundreds of flops
+// per byte at C >= 320, above the card's ~295 flop/byte ridge: the tensor
+// cores bound it (0.0305 ms at x (2, 24, 1024, 320)).
 //
-// Design:
-//  * implicit GEMM: a block owns a 64-row x 64-channel output tile of one
-//    sample; the K loop walks the three frame taps and 32-channel slices.
-//    Rows are (frame, token) pairs, so a tile may span frames (four of them
-//    at a 4x4 level) and nothing limits the frame count: 250 frames at a
-//    32x32 level are 4,000 row tiles of one sample. Offsets into x are
-//    64-bit; the three taps of a tile re-read rows that neighbouring row
-//    tiles load too, which the 50 MB L2 serves (a 250-frame sample at
-//    C = 320 is 164 MB, a frame 0.66 MB).
-//  * the A tile is built while loading: normalise with the finalised
-//    per-channel [mu; 1/sigma] in f32, affine, SiLU, round to bf16. A row
-//    whose source frame f + tap - 1 lies outside [0, F) is written as zeros
-//    (Conv3d zero padding), not as SiLU(norm(0)).
-//  * W (3, C, C) is streamed in 32 x 64 slices; it never sits whole in
-//    shared memory (9.8 MB at C = 1280).
-//  * bf16 WMMA tiles with f32 accumulation; 4 warps, each 32 x 32.
-//  * epilogue in the JAX order: bf16(acc) + bf16(bias), then + residual in
-//    bf16. Statistics are per-row-tile partials (B, n_row_tiles, 2, C)
-//    written once each and summed afterwards by the caller: blocks run in
-//    any order and nothing carries between them; no float atomics.
+// Design (three launches per layer, one C entry):
+//  * temporal_conv_act_kernel, the prologue, once per element. A thread
+//    keeps eight channels at every step and first folds their GroupNorm
+//    into one scale and shift each, in registers (xn = x*a + b, f32; inside
+//    the chain the block also finalises the statistics from the previous
+//    layer's raw sums, so the O(B*C) glue costs no launch), then applies
+//    SiLU and rounds to bf16 into a scratch tensor of x's shape: 16-byte
+//    loads, four in flight a thread, and 16-byte stores; bound by bytes
+//    (4 B an element). A
+//    separate pass, not a prologue applied where A is consumed: the frame
+//    padding then is TMA's zero fill, and A and W both go to wgmma from
+//    shared memory.
+//  * temporal_conv_gemm_kernel: an implicit GEMM on wgmma (sm_90a). A block
+//    owns a BM x BN output tile of one sample (BM = 64 * consumer
+//    warpgroups, BN up to 256; C = 320 runs as a 256-wide and a ragged
+//    64-wide column tile); the tile comes from
+//    kernels/temporal_conv.py::layer_plan, per shape. One producer thread
+//    feeds a ring of `stages` shared-memory stages by TMA through
+//    mbarriers: per K step (one frame tap, 64 channels) the
+//    activation box (64 channels, BM rows, 1 sample) at row
+//    m0 + (tap - 1) * HW of a 3-D tensor map (C, F*HW, B) -- rows outside
+//    the sample, i.e. frames -1 and F, arrive as zeros, which is the
+//    Conv3d zero padding since the activation was applied before -- and
+//    one weight box (64 out-channels, 64 in-channels of W viewed as
+//    (3C, C)) for each 64 columns of the tile. Both land 128-byte
+//    swizzled; A is read K-major, W MN-major (its out-channels are
+//    contiguous), by wgmma straight from shared memory.
+//    The consumer warpgroups keep one wgmma group in flight and release a
+//    stage when the group that read it has finished.
+//  * epilogue in registers in the JAX order: bf16(acc) + bf16(bias), then
+//    + residual in bf16; the bf16 tile is staged in the (now free) ring,
+//    128-byte swizzled, and leaves by TMA stores, which clip the rows past
+//    the sample's end. Statistics: per-column sum and sum^2 of the rounded
+//    output reduced with warp shuffles, then across warps in shared
+//    memory: one partial row per row tile, (B, n_row_tiles, 2, C), which
+//    temporal_conv_stats_kernel, the entry's third launch, sums in a fixed
+//    order into (B, 2, C). Blocks run in any order and nothing carries between
+//    them; no float atomics, no frame limit (int32 row coordinates hold
+//    250 frames x 1024 tokens).
+//  * what holds it back: the tiles are L2-bound. Each block streams its
+//    A boxes (three times, once a tap) and its W boxes from L2; a 128 x 256
+//    tile does 85 flops a byte so moved, at about 47 GB/s of L2 into one
+//    SM's shared memory about half the tensor cores' rate. Wider tiles
+//    need more than the 168 registers a thread of three warpgroups has (a
+//    128 x 320 tile spilled and ran slower). Two variants measured slower
+//    on an H100: clusters of two blocks that multicast W (each stage waits
+//    for both blocks' release), and a persistent grid (three stages beside
+//    the epilogue's own buffers, and a static share of tiles).
+//  * measured (chip_smoke.py --only kernels on an "NVIDIA H100 80GB HBM3,
+//    700.00 W"): at x (2, 24, 1024, 320) 0.1486 ms a layer by CUDA events
+//    around the wrapper, on the chain's route (torch.profiler: activation
+//    pass 0.0248 + GEMM 0.1144 ms, 263.9 TFLOP/s, + statistics sum 0.0030
+//    ms; the wrapper's host work about 60 us a call) against the bound
+//    0.0305 ms and the matmul yardstick 0.0554; at the 250-frame 8x8 level
+//    (2, 250, 64, 1280) 0.6538 ms, 49% of its bound.
+#include <cuda.h>
+
 #include "common.cuh"
 
 using namespace t2v;
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int NT = 128;
-constexpr int LDA = BK + 8;
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;
+constexpr int BK = 64;                     // channels per K step: one 128-byte row
+constexpr int BOX_BYTES = 64 * BK * 2;     // one 64 x 64 bf16 TMA box
+constexpr int MAX_SMEM = 232448;
+constexpr int SMEM_SLACK = 3072;           // barriers, the tile's bias, the 1024-byte alignment
 
-__global__ void __launch_bounds__(NT) temporal_conv_layer_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ fin,
-    const float* __restrict__ gscale, const float* __restrict__ gbias,
-    const bf16* __restrict__ w, const bf16* __restrict__ cbias,
-    const bf16* __restrict__ residual, bf16* __restrict__ y,
-    float* __restrict__ partial, int F, int HW, int C) {
-  __shared__ __align__(128) bf16 As[BM * LDA];
-  __shared__ __align__(128) bf16 Bs[BK * LDB];
-  __shared__ __align__(128) float Cs[BM * LDC];
+// shared-memory plan, mirrored by kernels/temporal_conv.py::layer_plan:
+// the ring, which the epilogue reuses for the staged bf16 output tile and
+// the per-warp column sums once the main loop is done
+__host__ __device__ constexpr int stage_bytes(int bm, int bn) { return bm * BK * 2 + (bn / 64) * BOX_BYTES; }
+__host__ __device__ constexpr int epilogue_bytes(int bm, int bn) { return bm * bn * 2 + (bm / 16) * bn * 8; }
+__host__ __device__ constexpr int gemm_smem_bytes(int bm, int bn, int stages) {
+  return (stages * stage_bytes(bm, bn) > epilogue_bytes(bm, bn) ? stages * stage_bytes(bm, bn)
+                                                                 : epilogue_bytes(bm, bn)) +
+         SMEM_SLACK;
+}
 
-  const int tid = threadIdx.x;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done;
+}
+// waits for the phase of `parity` to complete; a phase that never
+// completes (a lost arrival or byte count) traps after about 2^35 cycles
+// (17 s) instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1LL << 35)) asm volatile("trap;");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// wgmma shared-memory descriptors for 128-byte-swizzled tiles whose 8-row
+// swizzle atoms are 1024 bytes apart. A (K-major: 64 channels per 128-byte
+// row): the leading offset is unused. W (MN-major: 64 out-channels per
+// 128-byte row, one row per in-channel): 64-wide column boxes lie
+// BOX_BYTES apart.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(BOX_BYTES >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// m64nNk16, f32 += bf16 x bf16, A K-major and B MN-major from shared memory
+__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n192(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// one K step of 16 over the block's `nch` 64-wide column boxes (nch <
+// BN / 64 only in the ragged last column tile)
+template <int BN>
+__device__ __forceinline__ void mma_k16(float* acc, uint64_t da, uint64_t db, int nch) {
+  if constexpr (BN == 64) {
+    wgmma_n64(acc, da, db);
+  } else if constexpr (BN == 128) {
+    if (nch == 2) wgmma_n128(acc, da, db); else wgmma_n64(acc, da, db);
+  } else {
+    static_assert(BN == 256, "BN is 64, 128 or 256");
+    switch (nch) {
+      case 4: wgmma_n256(acc, da, db); break;
+      case 3: wgmma_n192(acc, da, db); break;
+      case 2: wgmma_n128(acc, da, db); break;
+      default: wgmma_n64(acc, da, db); break;
+    }
+  }
+}
+
+// keeps the compiler from moving accesses of an accumulator across the
+// asynchronous wgmma that writes it
+__device__ __forceinline__ void fence_acc(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// a = bf16(silu(x * a_c + b_c)) over the sample blockIdx.y, eight
+// channels a thread. The grid stride is a multiple of C / 8 (the launch
+// sees to it), so a thread's channels stay the same at every step and it
+// folds their GroupNorm once, into registers: a_c = inv_c * gscale_c,
+// b_c = gbias_c - mu_c * a_c. `stats` (B, 2, C) f32 is either the
+// finalised per-channel [mu; 1/sigma] (raw == 0) or the raw per-channel
+// [sum; sum^2] (raw != 0), which the block first reduces to GroupNorm(32)'s
+// group mean and 1/sigma over `count` values a group, as
+// kernels/temporal_conv.py::finalize_stats does. gscale and gbias are
+// bf16 when affine_bf16, else f32.
+__global__ void __launch_bounds__(256) temporal_conv_act_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ stats, const void* __restrict__ gscale,
+    const void* __restrict__ gbias, int affine_bf16, int raw, float count, float eps,
+    bf16* __restrict__ a, int sample_vecs, int C) {
+  __shared__ float group[2 * 32];  // GroupNorm(32) mean and 1/sigma
+  const long long b = blockIdx.y;
+  const float* st = stats + b * 2 * C;
+  const int gs = C / 32;
+  if (raw) {
+    if (threadIdx.x < 32) {
+      float s = 0.0f, s2 = 0.0f;
+      for (int i = 0; i < gs; ++i) {
+        s += st[threadIdx.x * gs + i];
+        s2 += st[C + threadIdx.x * gs + i];
+      }
+      const float mu = s / count;
+      group[threadIdx.x] = mu;
+      group[32 + threadIdx.x] = rsqrtf(s2 / count - mu * mu + eps);
+    }
+    __syncthreads();
+  }
+  const int stride = gridDim.x * blockDim.x;
+  const int v0 = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c0 = (v0 % (C / 8)) * 8;
+  float sc[8], sh[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = c0 + i;
+    const float mu = raw ? group[c / gs] : st[c];
+    const float inv = raw ? group[32 + c / gs] : st[C + c];
+    const float gsc = affine_bf16 ? __bfloat162float(static_cast<const bf16*>(gscale)[c])
+                                  : static_cast<const float*>(gscale)[c];
+    const float gsh = affine_bf16 ? __bfloat162float(static_cast<const bf16*>(gbias)[c])
+                                  : static_cast<const float*>(gbias)[c];
+    sc[i] = inv * gsc;
+    sh[i] = gsh - mu * sc[i];
+  }
+  const bf16* xs = x + b * sample_vecs * 8;
+  bf16* as = a + b * sample_vecs * 8;
+  // a sample holds fewer than 2^31 elements (the C entry checks), so the
+  // element index within it is 32-bit; each thread keeps UNROLL 16-byte
+  // loads in flight before it computes
+  constexpr int UNROLL = 4;
+  for (int v = v0; v < sample_vecs; v += UNROLL * stride) {
+    Pack8 in[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (v + u * stride < sample_vecs)
+        in[u].u = *reinterpret_cast<const uint4*>(xs + (size_t)(v + u * stride) * 8);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (v + u * stride >= sample_vecs) break;
+      Pack8 out;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float xn = fmaf(in[u].get(i), sc[i], sh[i]);
+        out.set(i, __fdividef(xn, 1.0f + __expf(-xn)));  // 0 once exp(-xn) passes 2^126
+      }
+      *reinterpret_cast<uint4*>(as + (size_t)(v + u * stride) * 8) = out.u;
+    }
+  }
+}
+
+// The layer's emitted statistics: out[b, j] = the sum over row tiles r of
+// partial[b, r, j], for the 2C entries j of [sum; sum^2], in a fixed order
+// (no atomics). A block sums 32 entries: 16 row lanes walk the row tiles,
+// then one lane adds the 16 lane sums.
+__global__ void __launch_bounds__(512) temporal_conv_stats_kernel(
+    const float* __restrict__ partial, float* __restrict__ out, int rows, int width) {
+  __shared__ float lane[16][33];
+  const int j = blockIdx.x * 32 + threadIdx.x;
+  const long long b = blockIdx.y;
+  float s = 0.0f;
+  if (j < width) {
+    const float* p = partial + b * rows * width + j;
+#pragma unroll 4
+    for (int r = threadIdx.y; r < rows; r += 16) s += p[(size_t)r * width];
+  }
+  lane[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < width) {
+    float t = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) t += lane[i][threadIdx.x];
+    out[b * width + j] = t;
+  }
+}
+
+// Where one block's shared memory lies: barriers in the first 128 bytes
+// (full[s] at 8s, empty[s] at 8(stages + s)), the tile's conv bias (BN f32),
+// then the 1024-aligned ring, which the epilogue reuses for the staged
+// output tile (BM x BN bf16 as 128-byte-swizzled 64 x 64 boxes) and the
+// per-warp column sums.
+struct GemmSmem {
+  uint32_t base, tiles;
+  int stages;
+  float* bias;
+  unsigned char* tiles_ptr;
+  __device__ uint32_t full(int s) const { return base + 8 * s; }
+  __device__ uint32_t empty(int s) const { return base + 8 * (stages + s); }
+};
+
+// The consumer warpgroups: the main loop over the ring, then the epilogue
+// of the block's BM x (64 * nch) tile (bias, residual, bf16 output by TMA,
+// a partial-statistics row).
+template <int BM, int BN>
+__device__ __forceinline__ void gemm_consume(
+    const GemmSmem& sm, const CUtensorMap* y_map, const bf16* __restrict__ cbias,
+    const bf16* __restrict__ residual, float* __restrict__ partial, int M, int C, int n0, int nch,
+    int m0, int b, int wg, int tid) {
+  constexpr int NWG = BM / 64;
+  constexpr int NCH = BN / 64;
+  constexpr int NACC = BN / 2;      // f32 accumulators a thread
+  constexpr int STAGE = stage_bytes(BM, BN);
+  const int n_k = 3 * (C / BK);
+  // the tile's conv bias, read once while the ring fills
+  for (int col = threadIdx.x; col < BN; col += NWG * 128)
+    sm.bias[col] = col < nch * 64 ? __bfloat162float(cbias[n0 + col]) : 0.0f;
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    acc[i] = 0.0f;
+    fence_acc(acc[i]);
+  }
+  for (int it = 0; it < n_k; ++it) {
+    const int s = it % sm.stages;
+    mbar_wait(sm.full(s), (it / sm.stages) & 1);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const uint32_t a_base = sm.tiles + s * STAGE + wg * 64 * BK * 2;
+    const uint32_t b_base = sm.tiles + s * STAGE + BM * BK * 2;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      mma_k16<BN>(acc, desc_k_major(a_base + kk * 32), desc_mn_major(b_base + kk * 16 * 128),
+                  nch);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    // the warpgroup's MMAs of the previous stage are done: lane 0 of each
+    // warp releases it
+    if (it > 0 && (threadIdx.x & 31) == 0) mbar_arrive(sm.empty((it - 1) % sm.stages));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) fence_acc(acc[i]);
+  // every consumer's MMAs are done, so the ring is free for the epilogue
+  named_barrier(1, NWG * 128);
+
   const int warp = tid / 32;
-  const int wm = warp / 2;
-  const int wn = warp % 2;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int b = blockIdx.z;
-  const int M = F * HW;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int q4 = lane % 4;
+  const int r0 = warp * 16 + g;  // this thread's rows r0 and r0 + 8 of its warpgroup's 64
+  unsigned char* out_tile = sm.tiles_ptr + wg * NCH * BOX_BYTES;  // NCH swizzled 64 x 64 boxes
+  float* red = reinterpret_cast<float*>(sm.tiles_ptr + BM * BN * 2);  // [NWG * 4][BN][2]
+  const int ma = m0 + wg * 64 + r0;
+  const int mb = ma + 8;
+  const bool oka = ma < M;
+  const bool okb = mb < M;
   const size_t sample = (size_t)b * M * C;
-  const float* mu = fin + (size_t)b * 2 * C;
-  const float* inv = mu + C;
-
-  FragAcc acc[2][2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int tap = 0; tap < 3; ++tap) {
-    for (int c0 = 0; c0 < C; c0 += BK) {
-      // A: normalised, activated input rows of frame f + tap - 1
-      for (int v = tid; v < BM * BK / 8; v += NT) {
-        const int r = v / (BK / 8);
-        const int cv = (v % (BK / 8)) * 8;
-        const int m = m0 + r;
-        Pack8 out;
-        out.u = zero_uint4();
-        if (m < M) {
-          const int f = m / HW;
-          const int p = m - f * HW;
-          const int fs = f + tap - 1;
-          if (fs >= 0 && fs < F) {
-            Pack8 in;
-            in.u = *reinterpret_cast<const uint4*>(
-                x + sample + ((size_t)fs * HW + p) * C + c0 + cv);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              const int c = c0 + cv + e;
-              const float xn = (in.get(e) - mu[c]) * inv[c] * gscale[c] + gbias[c];
-              out.set(e, xn / (1.0f + expf(-xn)));
-            }
-          }
-        }
-        *reinterpret_cast<uint4*>(As + r * LDA + cv) = out.u;
-      }
-      // B: rows c0..c0+BK of tap's (C_in, C_out) weight, columns n0..n0+BN
-      for (int v = tid; v < BK * BN / 8; v += NT) {
-        const int r = v / (BN / 8);
-        const int cv = (v % (BN / 8)) * 8;
-        *reinterpret_cast<uint4*>(Bs + r * LDB + cv) =
-            *reinterpret_cast<const uint4*>(
-                w + ((size_t)tap * C + c0 + r) * C + n0 + cv);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        FragA a[2];
-        FragBRow bw[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(bw[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bw[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int e = tid; e < BM * BN; e += NT) {
-    const int r = e / BN;
-    const int col = e % BN;
-    const int m = m0 + r;
+  for (int j = 0; j < BN / 8; ++j) {
+    if (j >= nch * 8) break;  // past a ragged tile's last box
+    const int col = j * 8 + q4 * 2;
     const int n = n0 + col;
-    float out = 0.0f;
-    if (m < M) {
-      const size_t idx = sample + (size_t)m * C + n;
-      out = round_bf16(round_bf16(Cs[r * LDC + col]) + __bfloat162float(cbias[n]));
-      if (residual != nullptr) out = round_bf16(out + __bfloat162float(residual[idx]));
-      y[idx] = __float2bfloat16(out);
+    const float bias0 = sm.bias[col];
+    const float bias1 = sm.bias[col + 1];
+    float o0 = round_bf16(round_bf16(acc[j * 4 + 0]) + bias0);
+    float o1 = round_bf16(round_bf16(acc[j * 4 + 1]) + bias1);
+    float o2 = round_bf16(round_bf16(acc[j * 4 + 2]) + bias0);
+    float o3 = round_bf16(round_bf16(acc[j * 4 + 3]) + bias1);
+    if (residual != nullptr) {
+      if (oka) {
+        const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
+            residual + sample + (size_t)ma * C + n);
+        o0 = round_bf16(o0 + __low2float(r));
+        o1 = round_bf16(o1 + __high2float(r));
+      }
+      if (okb) {
+        const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
+            residual + sample + (size_t)mb * C + n);
+        o2 = round_bf16(o2 + __low2float(r));
+        o3 = round_bf16(o3 + __high2float(r));
+      }
     }
-    Cs[r * LDC + col] = out;  // rows past M contribute 0 to the stats
+    // 128-byte swizzle of the staged box: 16-byte group (j % 8) of row r
+    // sits at group (j % 8) ^ (r % 8), and r % 8 == g for both rows
+    unsigned char* box = out_tile + (j / 8) * BOX_BYTES + (((j % 8) ^ g) * 16) + q4 * 4;
+    *reinterpret_cast<__nv_bfloat162*>(box + r0 * 128) = __floats2bfloat162_rn(o0, o1);
+    *reinterpret_cast<__nv_bfloat162*>(box + (r0 + 8) * 128) = __floats2bfloat162_rn(o2, o3);
+    if (partial != nullptr) {
+      // rows past the sample's end contribute 0
+      float s0 = (oka ? o0 : 0.0f) + (okb ? o2 : 0.0f);
+      float s1 = (oka ? o1 : 0.0f) + (okb ? o3 : 0.0f);
+      float t0 = (oka ? o0 * o0 : 0.0f) + (okb ? o2 * o2 : 0.0f);
+      float t1 = (oka ? o1 * o1 : 0.0f) + (okb ? o3 * o3 : 0.0f);
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        t0 += __shfl_xor_sync(0xffffffffu, t0, off);
+        t1 += __shfl_xor_sync(0xffffffffu, t1, off);
+      }
+      if (g == 0) {
+        float* dst = red + ((wg * 4 + warp) * BN + col) * 2;
+        dst[0] = s0;
+        dst[1] = t0;
+        dst[2] = s1;
+        dst[3] = t1;
+      }
+    }
   }
 
+  // the staged tile leaves by TMA: generic-proxy writes made visible first
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_barrier(2 + wg, 128);
+  if (tid == 0) {
+    if (m0 + wg * 64 < M) {
+      for (int ch = 0; ch < nch; ++ch)
+        tma_store_3d(y_map, smem_u32(out_tile + ch * BOX_BYTES), n0 + ch * 64, m0 + wg * 64, b);
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
   if (partial == nullptr) return;
-  __syncthreads();
-  for (int col = tid; col < BN; col += NT) {
+  named_barrier(1, NWG * 128);
+  for (int col = threadIdx.x; col < nch * 64; col += NWG * 128) {
     float s = 0.0f, s2 = 0.0f;
-    for (int r = 0; r < BM; ++r) {
-      const float v = Cs[r * LDC + col];
-      s += v;
-      s2 += v * v;
+#pragma unroll
+    for (int w = 0; w < NWG * 4; ++w) {
+      s += red[(w * BN + col) * 2];
+      s2 += red[(w * BN + col) * 2 + 1];
     }
     float* dst = partial + ((size_t)b * gridDim.y + blockIdx.y) * 2 * C + n0 + col;
     dst[0] = s;
@@ -178,20 +541,195 @@ __global__ void __launch_bounds__(NT) temporal_conv_layer_kernel(
   }
 }
 
-}  // namespace
+template <int BM, int BN>
+__global__ void __launch_bounds__((BM / 64 + 1) * 128, 1) temporal_conv_gemm_kernel(
+    const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap w_map,
+    const __grid_constant__ CUtensorMap y_map, const bf16* __restrict__ cbias,
+    const bf16* __restrict__ residual, float* __restrict__ partial, int M, int HW, int C,
+    int stages) {
+  constexpr int NWG = BM / 64;      // consumer warpgroups, 64 rows each
+  constexpr int NCH = BN / 64;      // 64-wide column boxes of a full tile
+  constexpr int STAGE = stage_bytes(BM, BN);
+  extern __shared__ __align__(1024) unsigned char smem[];
+  GemmSmem sm;
+  sm.base = smem_u32(smem);
+  sm.stages = stages;
+  sm.bias = reinterpret_cast<float*>(smem + 128);
+  sm.tiles = (sm.base + 128 + BN * 4 + 1023) & ~1023u;
+  sm.tiles_ptr = smem + (sm.tiles - sm.base);
 
-extern "C" int t2v_temporal_conv_layer(const void* x, const void* fin, const void* gscale,
-                                       const void* gbias, const void* w, const void* cbias,
-                                       const void* residual, void* y, void* partial, int B,
-                                       int F, int HW, int C, void* stream) {
-  const dim3 grid(C / BN, (F * HW + BM - 1) / BM, B);
-  temporal_conv_layer_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(fin),
-      static_cast<const float*>(gscale), static_cast<const float*>(gbias),
-      static_cast<const bf16*>(w), static_cast<const bf16*>(cbias),
-      static_cast<const bf16*>(residual), static_cast<bf16*>(y),
-      static_cast<float*>(partial), F, HW, C);
+  const int n0 = blockIdx.x * BN;
+  const int nch = min(NCH, (C - n0) / 64);  // column boxes of this tile: fewer in a ragged last one
+  const int m0 = blockIdx.y * BM;
+  const int b = blockIdx.z;
+  const int k_steps = C / BK;
+  // the warpgroup index, broadcast from lane 0 so that the compiler sees the
+  // role branch below as warp-uniform; with it and the producer's registers
+  // handed to the consumers (setmaxnreg) the GEMM ran faster on an H100, at
+  // every tile, than the same kernel without both
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  const int tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(sm.full(s), 1);
+      mbar_init(sm.empty(s), NWG * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // producer warpgroup: one thread issues every TMA load
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      for (int it = 0; it < 3 * k_steps; ++it) {
+        const int s = it % stages;
+        mbar_wait(sm.empty(s), ((it / stages) & 1) ^ 1);
+        mbar_expect_tx(sm.full(s), BM * BK * 2 + nch * BOX_BYTES);
+        const int tap = it / k_steps;
+        const int k0 = (it % k_steps) * BK;
+        const uint32_t st = sm.tiles + s * STAGE;
+        tma_load_3d(st, &a_map, sm.full(s), k0, m0 + (tap - 1) * HW, b);
+        for (int ch = 0; ch < nch; ++ch)
+          tma_load_2d(st + BM * BK * 2 + ch * BOX_BYTES, &w_map, sm.full(s), n0 + ch * 64,
+                      tap * C + k0);
+      }
+    }
+  } else {
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    gemm_consume<BM, BN>(sm, &y_map, cbias, residual, partial, M, C, n0, nch, m0, b, wg, tid);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 tensor of `rank` dims (innermost first) read or written in
+// 128-byte-swizzled boxes; elements outside it load as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+              const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int BM, int BN>
+int launch_gemm(const CUtensorMap& a_map, const CUtensorMap& w_map, const CUtensorMap& y_map,
+                const bf16* cbias, const bf16* residual, float* partial, int B, int M, int HW,
+                int C, int stages, cudaStream_t stream) {
+  const int smem = gemm_smem_bytes(BM, BN, stages);
+  if (stages < 2 || smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  static int allowed = 0;  // the largest dynamic shared memory set so far
+  if (smem > allowed) {
+    cudaError_t err = cudaFuncSetAttribute(temporal_conv_gemm_kernel<BM, BN>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = MAX_SMEM;
+  }
+  const dim3 grid((C + BN - 1) / BN, (M + BM - 1) / BM, B);
+  temporal_conv_gemm_kernel<BM, BN><<<grid, (BM / 64 + 1) * 128, smem, stream>>>(
+      a_map, w_map, y_map, cbias, residual, partial, M, HW, C, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int t2v_temporal_conv_row_tiles(int F, int HW) { return (F * HW + BM - 1) / BM; }
+}  // namespace
+
+// One layer. `stats` (B, 2, C) f32 holds the finalised [mu; 1/sigma], or,
+// when raw != 0, the raw channel sums [sum; sum^2] of F*HW values a sample
+// (GroupNorm(32) is then finalised in the activation pass, with `eps`).
+// gscale and gbias are (C,) bf16 when affine_bf16, else f32. `act` is
+// scratch of x's shape. When `stats_out` (B, 2, C) is given, `partial`
+// (B, ceil(F*HW / bm), 2, C) f32 is scratch for the GEMM's per-row-tile
+// statistics, which a third launch sums into `stats_out`; both may be null
+// (no statistics), and so may `residual`. The tile (bm, bn) and the ring
+// depth come from kernels/temporal_conv.py::layer_plan. Returns a CUDA
+// error code (1 for a plan or shape the kernel does not take).
+extern "C" int t2v_temporal_conv_layer(const void* x, const void* stats, const void* gscale,
+                                       const void* gbias, const void* w, const void* cbias,
+                                       const void* residual, void* act, void* y, void* partial,
+                                       void* stats_out,
+                                       int B, int F, int HW, int C, int affine_bf16, int raw,
+                                       float eps, int bm, int bn, int stages, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long M = (long long)F * HW;
+  if (C % 64 != 0 || M <= 0 || M * C > 0x7fffffffLL || (M + bm - 1) / bm > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sample_vecs = static_cast<int>(M * C / 8);
+  // blocks a sample: about 8 an SM in all, a multiple of `unit` so that the
+  // grid stride is a multiple of C / 8
+  int unit = C / 8;
+  for (int t = 256; t % 2 == 0 && unit % 2 == 0; t /= 2) unit /= 2;
+  const long long want = (sample_vecs + 255) / 256;
+  long long blocks = 8 * 132 / B;
+  if (blocks > want) blocks = want;
+  if (blocks < 1) blocks = 1;
+  blocks = (blocks + unit - 1) / unit * unit;
+  temporal_conv_act_kernel<<<dim3(static_cast<unsigned>(blocks), B), 256, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(stats), gscale, gbias, affine_bf16,
+      raw, static_cast<float>(M * (C / 32)), eps, static_cast<bf16*>(act), sample_vecs, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  CUtensorMap a_map, w_map, y_map;
+  const cuuint64_t act_dims[3] = {(cuuint64_t)C, (cuuint64_t)M, (cuuint64_t)B};
+  const cuuint64_t act_strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)M * C * 2};
+  const cuuint32_t a_box[3] = {BK, (cuuint32_t)bm, 1};
+  const cuuint32_t y_box[3] = {64, 64, 1};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)C, (cuuint64_t)3 * C};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)C * 2};
+  const cuuint32_t w_box[2] = {64, BK};
+  if (!make_map(&a_map, act, 3, act_dims, act_strides, a_box) ||
+      !make_map(&w_map, w, 2, w_dims, w_strides, w_box) ||
+      !make_map(&y_map, y, 3, act_dims, act_strides, y_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  const bf16* cb = static_cast<const bf16*>(cbias);
+  const bf16* res = static_cast<const bf16*>(residual);
+  float* part = stats_out == nullptr ? nullptr : static_cast<float*>(partial);
+  const int m = static_cast<int>(M);
+  err = cudaErrorInvalidValue;
+#define T2V_GEMM(BM_, BN_) \
+  if (bm == BM_ && bn == BN_) \
+    err = static_cast<cudaError_t>( \
+        launch_gemm<BM_, BN_>(a_map, w_map, y_map, cb, res, part, B, m, HW, C, stages, st));
+  T2V_GEMM(128, 256)
+  T2V_GEMM(128, 128)
+  T2V_GEMM(128, 64)
+  T2V_GEMM(64, 256)
+  T2V_GEMM(64, 128)
+  T2V_GEMM(64, 64)
+#undef T2V_GEMM
+  if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);
+  const int rows = static_cast<int>((M + bm - 1) / bm);
+  temporal_conv_stats_kernel<<<dim3((2 * C + 31) / 32, B), dim3(32, 16), 0, st>>>(
+      part, static_cast<float*>(stats_out), rows, 2 * C);
+  return static_cast<int>(cudaGetLastError());
+}

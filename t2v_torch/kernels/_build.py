@@ -133,9 +133,12 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_of(t) -> ctypes.c_void_p:
+    """The raw handle of the current CUDA stream of ``t``'s device (without
+    building a ``torch.cuda.Stream``, which costs several microseconds a
+    launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.get_device()))
 
 
 def require(cond: bool, what: str) -> None:

@@ -13,7 +13,9 @@
 
 The heads stay packed in the minor dimension, as the q/k/v projections
 emit them. On a CUDA tensor these launch ``csrc/fused_mha.cu`` (bf16, head
-dim 40, 64, 80 or 160); on a CPU tensor they run ``fused_self_mha_plain``,
+dim 40, 64, 80 or 160; the self, frame-axis and long-context cross entries
+under the per-shape plan of ``self_mha_plan``); on a CPU tensor they run
+``fused_self_mha_plain``,
 ``fused_cross_mha_plain`` and ``fused_temporal_mha_plain``, which fold the
 heads (and, for the last, swap the frame and token axes) and run
 dot-product attention with an f32 softmax.
@@ -29,6 +31,8 @@ so the score matrix is cheap to rebuild).
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -42,6 +46,67 @@ HEAD_DIMS = (40, 64, 80, 160)
 MAX_N = 512
 # contexts up to this length sit whole in shared memory; longer ones stream
 CROSS_WHOLE_KV = 128
+
+# query rows of a warp's tile, the card's SMs and a block's shared memory
+# (H100 SXM), and the blocks a plan aims for: two for each SM
+QT = 16
+SMS = 132
+MAX_SMEM = 232448
+MIN_BLOCKS = 2 * SMS
+# query tiles a block takes at most when it packs several short sequences
+PACK_TILES = 8
+
+
+@dataclass(frozen=True)
+class MHAPlan:
+    """How ``packed_mha_kernel`` cuts one call into blocks."""
+
+    dp: int               # head dim rounded up to a multiple of 16
+    kc: int               # key rows of a K/V chunk in shared memory
+    warps: int            # warps a block; each takes one 16-row query tile a round
+    pairs_per_block: int  # (sequence, head) pairs a block owns
+    tiles_per_block: int  # query tiles of each pair a block owns
+    resident: bool        # the block's whole K/V is loaded once; else streamed per round
+    smem_bytes: int
+    blocks: int
+
+    def ints(self) -> tuple[int, ...]:
+        """The plan as the C entries take it."""
+        return (self.kc, self.warps, self.pairs_per_block, self.tiles_per_block,
+                int(self.resident))
+
+
+@functools.lru_cache(maxsize=None)
+def self_mha_plan(n_seq: int, n: int, s: int, heads: int, d: int) -> MHAPlan:
+    """Plan for ``n_seq`` sequences of ``n`` queries over ``s`` keys with
+    ``heads`` heads of ``d``. A block reads each of its (sequence, head)
+    pairs' K/V from device memory once: whole when it fits shared memory
+    (every path shape), else in a double buffer once per round of query
+    tiles. Sequences of one key chunk are packed several to a block, up to
+    ``PACK_TILES`` query tiles, and a long sequence's query tiles are split
+    over blocks, each while at least ``MIN_BLOCKS`` blocks remain."""
+    dp = next(p for p in (48, 64, 80, 160) if d <= p)
+    kc = 32 if s <= 32 or dp == 160 else 64
+    n_chunks = -(-s // kc)
+    n_qt = -(-n // QT)
+    pairs = n_seq * heads
+    row = (dp + 8) * 2
+    ppb = 1
+    while n_chunks == 1 and 2 * ppb * n_qt <= PACK_TILES and pairs >= 2 * ppb * MIN_BLOCKS:
+        ppb *= 2
+    tpb = n_qt
+    while tpb > 1 and -(-pairs // ppb) * -(-n_qt // tpb) < MIN_BLOCKS:
+        tpb = -(-tpb // 2)
+    items = ppb * tpb
+    # a block of several short sequences runs 4 warps (two rounds of its 8
+    # tiles), one long sequence 8 (measured faster on both)
+    warps = next(w for w in ((4, 2, 1) if ppb > 1 else (8, 4, 2, 1)) if items >= w)
+    q_bytes = warps * QT * row
+    chunk_bytes = 2 * kc * row
+    resident = ppb * n_chunks * chunk_bytes + q_bytes <= MAX_SMEM
+    smem = (ppb * n_chunks if resident else 2) * chunk_bytes + q_bytes
+    return MHAPlan(dp, kc, warps, ppb, tpb, resident, smem,
+                   -(-pairs // ppb) * -(-n_qt // tpb))
 
 
 def _folded_attention(q, k, v, heads: int, scale: float | None) -> torch.Tensor:
@@ -133,16 +198,26 @@ def check_temporal_args(q, k, v, heads: int, f: int) -> None:
                    f"fused_temporal_mha: {q.shape[0]} rows are not whole samples of {f} frames")
 
 
-def _launch(entry: str, q, k, v, ints: tuple[int, ...], scale: float) -> torch.Tensor:
-    """Launch a C entry ``(q, k, v, o, *ints, scale, stream)``."""
-    lib = _build.load("fused_mha")
-    fn = getattr(lib, entry)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * len(ints)
-                   + [ctypes.c_float, ctypes.c_void_p])
+@functools.cache
+def _entry(name: str, n_ints: int, n_plan_ints: int):
+    """A C entry ``(q, k, v, o, *ints, scale, *plan, stream)`` of
+    ``csrc/fused_mha.cu``, its argument types set once."""
+    fn = getattr(_build.load("fused_mha"), name)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [ctypes.c_float]
+                   + [ctypes.c_int] * n_plan_ints + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(entry: str, q, k, v, ints: tuple[int, ...], scale: float,
+            plan: MHAPlan | None = None) -> torch.Tensor:
+    """Launch a C entry ``(q, k, v, o, *ints, scale, *plan, stream)`` (the
+    whole-context cross entry takes no plan)."""
+    plan_ints = plan.ints() if plan is not None else ()
+    fn = _entry(entry, len(ints), len(plan_ints))
     o = torch.empty_like(q)
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o), *ints, float(scale),
-             _build.stream_of(q))
+             *plan_ints, _build.stream_of(q))
     _build.check(err, entry)
     return o
 
@@ -152,18 +227,26 @@ def _packed_ints(q, k, heads: int) -> tuple[int, ...]:
     return b, n, k.shape[1], heads, hd // heads
 
 
+def _packed_plan(q, k, heads: int) -> MHAPlan:
+    b, n, hd = q.shape
+    return self_mha_plan(b, n, k.shape[1], heads, hd // heads)
+
+
 def _self_cuda(q, k, v, heads: int, scale: float) -> torch.Tensor:
     check_args(q, k, v, heads)
-    o = _launch("t2v_fused_self_mha", q, k, v, _packed_ints(q, k, heads), scale)
+    o = _launch("t2v_fused_self_mha", q, k, v, _packed_ints(q, k, heads), scale,
+                _packed_plan(q, k, heads))
     COUNTER.hit()
     return o
 
 
 def _cross_cuda(q, k, v, heads: int, scale: float) -> torch.Tensor:
     check_cross_args(q, k, v, heads)
-    whole = k.shape[1] <= CROSS_WHOLE_KV
-    o = _launch("t2v_fused_cross_mha" if whole else "t2v_fused_self_mha", q, k, v,
-                _packed_ints(q, k, heads), scale)
+    if k.shape[1] <= CROSS_WHOLE_KV:
+        o = _launch("t2v_fused_cross_mha", q, k, v, _packed_ints(q, k, heads), scale)
+    else:
+        o = _launch("t2v_fused_self_mha", q, k, v, _packed_ints(q, k, heads), scale,
+                    _packed_plan(q, k, heads))
     CROSS_COUNTER.hit()
     return o
 
@@ -171,7 +254,9 @@ def _cross_cuda(q, k, v, heads: int, scale: float) -> torch.Tensor:
 def _temporal_cuda(q, k, v, heads: int, f: int, scale: float) -> torch.Tensor:
     check_temporal_args(q, k, v, heads, f)
     bf, n, hd = q.shape
-    o = _launch("t2v_fused_temporal_mha", q, k, v, (bf // f, f, n, heads, hd // heads), scale)
+    plan = self_mha_plan(bf // f * n, f, f, heads, hd // heads)
+    o = _launch("t2v_fused_temporal_mha", q, k, v, (bf // f, f, n, heads, hd // heads), scale,
+                plan)
     TEMPORAL_COUNTER.hit()
     return o
 
