@@ -9,7 +9,7 @@ and prints no result line):
 1. build every CUDA kernel from ``t2v_torch/csrc`` (one ``nvcc`` per
    source, all started together) and print the build time, and the
    registers, spills and stack of every entry function of the redesigned
-   sources (``temporal_conv.cu``, ``fused_mha.cu``);
+   sources (``temporal_conv.cu``, ``fused_mha.cu``, ``flash_attention.cu``);
 2. check that each wrapper refuses malformed CUDA tensors, then hold each
    kernel against its plain PyTorch version on the card, in bf16, at every
    shape the driven paths give it (24-, 125- and 250-frame ModelScope,
@@ -20,11 +20,15 @@ and prints no result line):
    here as a yardstick only: the port never calls it), with the rate
    reached, the share of the bound, the per-shape plan of the redesigned
    kernels, their times before the redesign, and the temporal-conv layer's
-   split into activation pass and GEMM (torch.profiler);
+   split into activation pass and GEMM and the flash and cross-attention
+   kernels' device time (torch.profiler), with the wrappers' host time;
 3. answer one request with a small ModelScope pipeline and one with a small
    VideoCrafter pipeline whose widths every kernel takes, in bf16 on the
    card, and hold their latents and frames against the same weights in
    float32 on the CPU (``check_small_pipeline``, ``check_small_vc_pipeline``);
+   then the same two pipelines built in float32 on the card, which the
+   dispatch routes to the plain versions: no kernel launch, and their
+   latents and frames match the float32 CPU run (``check_fp32_pipelines``);
 4. build ``ModelScopePipeline.random_init`` at the full configs (1.41B-
    parameter UNet, ViT-H text tower, SD VAE) in bf16 on the card, perturb
    the zero-initialised leaves, and answer two txt2vid requests (24 frames
@@ -129,10 +133,10 @@ SELF_MHA_CASES = [(48, 256, 10, 64), (48, 64, 20, 64), (48, 16, 20, 64), (2048, 
                   (2048, 125, 5, 64), (2048, 125, 8, 64), (512, 125, 10, 64), (128, 125, 20, 64),
                   (32, 125, 20, 64), (2048, 250, 5, 64), (128, 250, 20, 64),
                   (32, 256, 8, 80), (32, 64, 8, 160), (32, 16, 8, 160), *SELF_MHA_RAGGED]
-# Packed cross-attention (B, N, S, heads, D): VideoCrafter's spatial
-# cross-attention, 16 frames of tokens merged into the query rows over the
-# 77-token context, at its four levels; a ragged one; and one context too
-# long for shared memory, which takes the packed self kernel's body
+# Packed cross-attention (B, N, S, heads, D), all on the packed kernel's
+# body: VideoCrafter's spatial cross-attention, 16 frames of tokens merged
+# into the query rows over the 77-token context, at its four levels; a
+# ragged one; and a longer context
 CROSS_MHA_RAGGED = [(3, 1000, 50, 5, 40), (2, 300, 200, 2, 64)]
 CROSS_MHA_CASES = [(2, 16384, 77, 8, 40), (2, 4096, 77, 8, 80), (2, 1024, 77, 8, 160),
                    (2, 256, 77, 8, 160), *CROSS_MHA_RAGGED]
@@ -146,11 +150,28 @@ TEMPORAL_MHA_CASES = [(2, f, n, h, 64) for f in (T, T_LONG, 250)
                       for n, h in ((1024, 5), (256, 10), (64, 20), (16, 20))]
 TEMPORAL_MHA_CASES += [(2, T, 9216, 5, 64), *TEMPORAL_MHA_RAGGED]
 
+# Flash attention forward (B, N, S, D, scale): ModelScope's 32x32 spatial
+# self-attention at 24 frames (2 x 24 x 5 heads) and at 125 frames,
+# VideoCrafter's at 40-wide heads (2 x 16 x 8), the VAE mid-block attention
+# (one head of 512), then ragged ones that reach the edges of the kernel's
+# tiles (128 query rows, 64 at D = 512; 128 or 64 keys): N and S not
+# multiples of a tile, S shorter than one key tile, a single query row,
+# D = 80 and 160, and N != S at D = 512
+FLASH_TIMED = [(240, 1024, 1024, 64, 0.125), (1250, 1024, 1024, 64, 0.125),
+               (256, 1024, 1024, 40, 40 ** -0.5), (24, 1024, 1024, 512, 512 ** -0.5)]
+FLASH_RAGGED = [(3, 333, 777, 64, 0.125), (3, 333, 777, 40, 40 ** -0.5), (2, 70, 600, 160, 0.1),
+                (2, 200, 50, 64, 0.125), (2, 130, 100, 40, 40 ** -0.5), (2, 1, 513, 64, 0.125),
+                (2, 300, 517, 80, 80 ** -0.5), (3, 129, 65, 160, 160 ** -0.5),
+                (2, 100, 300, 512, 512 ** -0.5), (1, 65, 1030, 512, 512 ** -0.5)]
+FLASH_CASES = FLASH_TIMED + FLASH_RAGGED
+
 # the time of each redesigned kernel at its dominant shape before its
 # redesign (PERF.md section 6, measured on an "NVIDIA H100 80GB HBM3,
 # 700.00 W"), printed beside this run's
 BEFORE_REDESIGN_MS = {"temporal_conv": 0.6516, "temporal_conv_long": 3.1702,
-                      "fused_self_mha": 0.3901, "fused_temporal_mha": 0.2294}
+                      "fused_self_mha": 0.3901, "fused_temporal_mha": 0.2294,
+                      "flash_attention": 1.1703, "flash_attention_vae": 3.1513,
+                      "fused_cross_mha": 0.1772}
 
 
 def _fail(msg: str) -> None:
@@ -192,18 +213,19 @@ class KernelRecord:
         self.max_abs_err = 0.0
         self.main = None  # timings at that path's dominant shape
 
-    def timed(self, shape, ms, plain_ms, library_ms, flops, nbytes, main=False, plan="") -> None:
+    def timed(self, shape, ms, plain_ms, library_ms, flops, nbytes, main=False, plan="",
+              before_key=None) -> None:
         """Print one launch's time at ``shape`` beside its bound, the plain
         version's and the library call's (None: no PyTorch call computes the
         function), the rate it reached in the bound's unit and its share of
-        the bound, and at the dominant shape of a redesigned kernel its time
-        before the redesign; keep it for the JSON line when it is the
-        dominant shape."""
+        the bound, and at the dominant shape of a redesigned kernel (or at
+        the shape ``before_key`` names) its time before the redesign; keep
+        it for the JSON line when it is the dominant shape."""
         bound, by = _bound_ms(flops, nbytes)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if by == "operations"
                 else f"{nbytes / ms / 1e9:.3f} TB/s")
-        before = BEFORE_REDESIGN_MS.get(self.name) if main else None
+        before = BEFORE_REDESIGN_MS.get(before_key or self.name) if main or before_key else None
         print(f"  time {self.name:18s} {str(tuple(shape)):26s} kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib}, bound {bound:.4f} ms ({by}); {rate}, "
               f"{100 * bound / ms:.1f}% of the bound"
@@ -411,38 +433,73 @@ def _attn_flops_bytes(b, n, s, d, heads=1):
     return 4.0 * b * heads * n * s * d, 2.0 * b * heads * d * (2 * n + 2 * s)
 
 
+def _kernel_device_ms(call, kernel: str, calls: int = 5) -> float:
+    """Device time a call of ``call`` spends in kernels whose name holds
+    ``kernel``, from torch.profiler over ``calls`` calls (0: the profiler
+    recorded none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    return sum(dev_ms for dev_ms, _, name in _device_kernels(prof) if kernel in name) / calls
+
+
 def check_flash(g) -> list[KernelRecord]:
+    """Row 2 at every ``FLASH_CASES`` shape, both routes: the serving
+    forward (output only) and the training forward (output and lse), each
+    against ``flash_attention_fwd_plain``. The four path shapes are timed
+    beside the plain version and SDPA, with the kernel's device time
+    (torch.profiler) and the wrapper's host time a call."""
     import torch
     import torch.nn.functional as F
 
-    from t2v_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from t2v_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
+        flash_attention_plain,
+        flash_plan,
+    )
 
     rec = KernelRecord("flash_attention", "t2v_torch/csrc/flash_attention.cu",
                        "t2v/kernels/flash_attention.py:33", "modelscope_24f")
-    # (B, N, S, D, scale): ModelScope 32x32 spatial self-attention at 24 frames
-    # (2 x 24 x 5 heads) and at 125 frames, VideoCrafter's at 40-wide heads
-    # (2 x 16 x 8), the VAE mid-block attention, and ragged ones
-    ragged = [(3, 333, 777, 64, 0.125), (3, 333, 777, 40, 40 ** -0.5), (2, 70, 600, 160, 0.1)]
-    cases = [(240, 1024, 1024, 64, 0.125), (1250, 1024, 1024, 64, 0.125),
-             (256, 1024, 1024, 40, 40 ** -0.5), (24, 1024, 1024, 512, 512 ** -0.5), *ragged]
-    for b, n, s, d, scale in cases:
+    for b, n, s, d, scale in FLASH_CASES:
         q = torch.randn((b, n, d), generator=g, device="cuda").to(torch.bfloat16)
         k = torch.randn((b, s, d), generator=g, device="cuda").to(torch.bfloat16)
         v = torch.randn((b, s, d), generator=g, device="cuda").to(torch.bfloat16)
+        label = f"q{(b, n, d)} kv{(b, s, d)}"
+        want, lse_want = flash_attention_fwd_plain(q, k, v, scale)
         got = flash_attention(q, k, v, scale)
-        want = flash_attention_plain(q, k, v, scale)
+        got_fwd, lse = flash_attention_fwd(q, k, v, scale)
         torch.cuda.synchronize()
-        _compare(rec, f"q{(b, n, d)} kv{(b, s, d)}", got, want)
-        del got, want
-        if (b, n, s, d, scale) in ragged:  # checked, not timed
+        _compare(rec, label, got, want)
+        _compare(rec, f"training forward {label}", got_fwd, want)
+        _compare(rec, f"lse {label}", lse, lse_want)
+        del got, got_fwd, want, lse, lse_want
+        p = flash_plan(b, n, s, d)
+        plan = (f"{p.bq} x {p.bkv} tiles{' (column split)' if p.column_split else ''}, "
+                f"{p.stages} stages, {p.smem_bytes} B, {p.blocks} blocks")
+        if (b, n, s, d, scale) in FLASH_RAGGED:  # checked, not timed
+            print(f"    plan {label}: {plan}", flush=True)
             continue
-        ms = _time_ms(lambda: flash_attention(q, k, v, scale), 10)
+        call = lambda: flash_attention(q, k, v, scale)  # noqa: E731
+        ms = _time_ms(call, 10)
         plain_ms = _time_ms(lambda: flash_attention_plain(q, k, v, scale), 3)
         # SDPA takes its fused paths on 4-D (batch, heads, seq, dim) input
         q4, k4, v4 = q[:, None], k[:, None], v[:, None]
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), 10)
         rec.timed((b, n, s, d), ms, plain_ms, lib_ms, *_attn_flops_bytes(b, n, s, d),
-                  main=(b, d) == (240, 64))
+                  main=(b, d) == (240, 64), plan=plan,
+                  before_key="flash_attention_vae" if d == 512 else None)
+        dev = _kernel_device_ms(call, "flash_fwd_kernel")
+        flops = _attn_flops_bytes(b, n, s, d)[0]
+        print(f"  device flash_attention {str((b, n, s, d)):26s} "
+              + (f"{dev:.4f} ms ({flops / dev / 1e9:.1f} TFLOP/s; torch.profiler)" if dev
+                 else "not measured (the profiler recorded no device time)")
+              + f"; host {_host_us(call, 20):.1f} us a call", flush=True)
         _release()
     return [rec]
 
@@ -577,7 +634,14 @@ def check_fused_mha(g) -> list[KernelRecord]:
         plain_ms = _time_ms(lambda: fused_cross_mha_plain(q, k, v, h), 3)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(fold(q), fold(k), fold(v)), 20)
         cross.timed((b, n, s, hd, h), ms, plain_ms, lib_ms, *_attn_flops_bytes(b, n, s, d, h),
-                    main=n == 16384)
+                    main=n == 16384, plan=_mha_plan_note(self_mha_plan(b, n, s, h, d)))
+        if n == 16384:
+            call = lambda: fused_cross_mha(q, k, v, h)  # noqa: E731
+            dev = _kernel_device_ms(call, "packed_mha_kernel")
+            print(f"  device fused_cross_mha {str((b, n, s, hd, h)):26s} "
+                  + (f"{dev:.4f} ms (torch.profiler)" if dev
+                     else "not measured (the profiler recorded no device time)")
+                  + f"; host {_host_us(call, 20):.1f} us a call", flush=True)
     return [rec, cross]
 
 
@@ -705,7 +769,7 @@ def check_geglu(g) -> list[KernelRecord]:
 
 # the sources of the redesigned kernels, whose every entry
 # function's registers, spills and stack the build prints
-REDESIGNED = ("temporal_conv", "fused_mha")
+REDESIGNED = ("temporal_conv", "fused_mha", "flash_attention")
 
 
 def _kernel_label(mangled: str) -> str:
@@ -901,8 +965,10 @@ def _read_counters() -> dict:
 def _no_plain_on_cuda():
     """While active, a kernel wrapper's plain version raises when it is
     handed a CUDA tensor: the driven paths must go through the kernels.
-    (The dispatch's own short-context attention, ``attention.attention_plain``,
-    is not a wrapper's fallback and is left alone; nor are the recompute
+    (The dispatch's own plain routes, ``attention.attention_plain`` for the
+    short contexts and the plain versions for what no kernel takes, are not
+    a wrapper's fallback and are left alone; the launch counts hold the
+    bf16 paths to the kernels. Nor are the recompute
     backwards ``fused_mha_backward``, ``relpos_mha_backward`` and
     ``chain_backward``, which run plain math on the card by design, as the
     JAX package's custom VJPs do.)"""
@@ -1031,6 +1097,87 @@ def check_small_vc_pipeline(device: str = "cuda") -> dict:
         lambda policy, dev: VideoCrafterPipeline.random_init(cfg, policy, seed=0, device=dev,
                                                              small_aux=True),
         args, noise, device)
+
+
+# the float32 pipeline on the card against the same pipeline in float32 on
+# the CPU: the latents within this relative RMS (both run every product in
+# full float32, with TF32 off; they differ in summation order, about 1e-6
+# of a value a product, grown through 4 CFG-9 steps of the UNet, an order
+# of magnitude below the 1e-2 that one bf16 rounding in the path makes),
+# and the uint8 frames at most this many levels apart (a float difference
+# far below one level can still cross one rounding boundary)
+FP32_LATENT_REL = 1e-3
+FP32_FRAME_LEVELS = 1
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """Float32 convolutions and matmuls in full float32 (no TF32), restored
+    after."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+
+
+def check_fp32_pipelines() -> None:
+    """The small ModelScope and VideoCrafter pipelines built with
+    ``Policy.fp32()`` on the card: the dispatch routes every attention and
+    temporal-conv call to the plain versions there (no kernel takes
+    float32), so the request launches no kernel, by the counters, and its
+    latents and frames match the same pipeline's float32 CPU run."""
+    import numpy as np
+    import torch
+
+    from t2v_torch.core.config import ModelScopeUNetConfig, T2VArgs, VideoCrafterUNetConfig
+    from t2v_torch.core.dtypes import Policy
+    from t2v_torch.pipeline.pipeline import ModelScopePipeline
+    from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
+
+    ms_cfg, vc_cfg = ModelScopeUNetConfig(**SMALL_UNET), VideoCrafterUNetConfig(**SMALL_VC_UNET)
+    cases = [
+        ("ModelScope", lambda dev: ModelScopePipeline.random_init(
+            ms_cfg, Policy.fp32(), seed=0, device=dev),
+         T2VArgs(prompt="a (red:1.2) fox running in the snow", seed=3, steps=4, frames=8,
+                 width=64, height=64, cfg_scale=CFG), 3),
+        ("VideoCrafter", lambda dev: VideoCrafterPipeline.random_init(
+            vc_cfg, Policy.fp32(), seed=0, device=dev, small_aux=True),
+         T2VArgs(prompt="a red fox running in the snow", n_prompt="blurry", seed=3, steps=4,
+                 frames=8, width=64, height=64, cfg_scale=CFG), 4),
+    ]
+    for label, build, args, seed in cases:
+        noise = torch.randn((1, 8, 32, 32, 4), generator=torch.Generator().manual_seed(seed))
+        ref = build("cpu")
+        _perturb_zero_leaves(ref)
+        want = ref.infer(args, noise=noise)
+        pipe = build("cuda")
+        for dst, src in zip(_models(pipe), _models(ref)):
+            dst.load_state_dict(src.state_dict())
+        with _full_fp32():
+            _reset_counters()
+            got = pipe.infer(args, noise=noise)
+            torch.cuda.synchronize()
+            launches = _read_counters()
+        lat_got, lat_want = got.latents.double().cpu(), want.latents.double()
+        rel = ((lat_got - lat_want).norm() / lat_want.norm()).item()
+        levels = int(np.abs(got.frames.astype(np.int16) - want.frames.astype(np.int16)).max())
+        ok = not any(launches.values()) and rel <= FP32_LATENT_REL and levels <= FP32_FRAME_LEVELS
+        print(f"float32 {label} pipeline on {torch.cuda.get_device_name(0)}: latents "
+              f"{rel:.3e} from the float32 CPU run (limit "
+              f"{FP32_LATENT_REL:.0e}), frames at most {levels} level(s) apart (limit "
+              f"{FP32_FRAME_LEVELS}), launches {launches} {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            _fail(f"float32 {label} pipeline on the card: launches {launches}, latents {rel} "
+                  f"from the CPU run, frames {levels} levels apart")
+        del ref, pipe
+        _release()
 
 
 def _answer(label, pipe, args, frames, expected, unet_steps, **infer_kwargs):
@@ -1724,8 +1871,7 @@ _CATEGORIES = (
                                "temporal_conv_stats_kernel")),
     ("flash_attention kernel", ("flash_fwd_kernel",)),
     ("flash backward kernels", ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
-    ("fused_self_mha kernel", ("packed_mha_kernel",)),
-    ("fused_cross_mha kernel", ("cross_mha_kernel",)),
+    ("fused_self_mha / fused_cross_mha kernel", ("packed_mha_kernel",)),
     ("relpos_mha kernel", ("relpos_mha_kernel",)),
     ("geglu kernel", ("geglu_kernel",)),
     ("convolution (cuDNN)", ("conv", "fprop", "implicit", "cudnn")),
@@ -1822,6 +1968,7 @@ def main() -> int:
         if not all(small[k] for k in ("flash_attention", "fused_self_mha", "fused_cross_mha",
                                       "relpos_mha")):
             _fail(f"the small VideoCrafter pipeline did not run every kernel of its path: {small}")
+        check_fp32_pipelines()
         print(f"small pipelines done at {time.perf_counter() - t_start:.0f} s", flush=True)
     if only in (None, "train"):
         check_gradients()

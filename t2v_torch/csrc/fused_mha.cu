@@ -1,20 +1,14 @@
 // Packed-head attention over short key sequences, read in the (B, N, H*D)
 // layout that the q/k/v projections emit: head h is the strided D-wide
 // column slice [h*D, h*D + D) of every row, so there is no head fold and no
-// transpose. f32 softmax; keys past the sequence end are masked. Two kernels:
-//
-//  * packed_mha_kernel: q (B, N, H*D) over k/v (B, S, H*D), any N and
-//    S < 512. The self-attention entry (S = N) and cross-attention over
-//    contexts too long for the kernel below go here. It is templated on
-//    where a sequence's rows lie (TokenRows, FrameRows): the frame-axis
-//    entry runs the same body over the sample-major (B*F, N, H*D) layout,
-//    attending across the F frame rows of each (sample, spatial token)
-//    with a row stride of N*H*D.
-//  * cross_mha_kernel: q (B, N, H*D) with many rows over a short context
-//    k/v (B, S, H*D), S <= 128 (the 77-token text context): K and V of one
-//    head sit whole in shared memory and are shared by every query tile of
-//    the block, so the scores of a tile are complete and need no online
-//    rescaling.
+// transpose. f32 softmax; keys past the sequence end are masked. One kernel,
+// packed_mha_kernel: q (B, N, H*D) over k/v (B, S, H*D), any N and S < 512.
+// The self-attention entry (S = N) and the cross-attention over a short
+// shared context (the 77-token text context of a whole video's tokens) run
+// it through t2v_fused_self_mha. It is templated on where a sequence's rows
+// lie (TokenRows, FrameRows): the frame-axis entry runs the same body over
+// the sample-major (B*F, N, H*D) layout, attending across the F frame rows
+// of each (sample, spatial token) with a row stride of N*H*D.
 //
 // Replaces: t2v/kernels/fused_mha.py::_self_mha_kernel (driven by
 // fused_self_mha; dispatched from t2v/kernels/attention.py::
@@ -65,17 +59,19 @@
 //  * up to DP = 80 a thread is held to 128 registers, so that two blocks
 //    of 8 warps share an SM (faster than one block with more registers).
 //
+// Cross-attention over the 77-token text context (N >> S): one (sample,
+// head) pair's K/V, three 32-row chunks (96 padded keys where 64-row ones
+// pad to 128), resident in shared memory for a block's 32 query tiles.
+//
 // Measured (chip_smoke.py on an "NVIDIA H100 80GB HBM3, 700.00 W"): the
 // packed self-attention at (48, 256, 640), 10 heads, 0.0541 ms against its
 // bound 0.0188 ms (bytes) and SDPA's 0.0535; the frame-axis entry at
 // (48, 1024, 320), 5 heads, F = 24, 0.0671 ms against 0.0376 and SDPA's
-// 0.1769. What holds it back is `ldmatrix` traffic per mma.sync and one
-// exp2 per score, not bytes.
-//
-// cross_mha_kernel: a block owns (sample, head, a run of query tiles); its
-// 4 warps walk the run's 16-row tiles over the block's K/V, with bf16 WMMA
-// and f32 accumulation; the context is padded to a multiple of 16 rows and
-// masked to -inf in the scores.
+// 0.1769; the cross-attention at q (2, 16384, 320) over 77 tokens, 8
+// heads, 0.0474 ms by CUDA events (0.0262 ms of device time under 40 us of
+// the wrapper's host time) against 0.0126 and SDPA's 0.0694. What holds
+// the kernel back is `ldmatrix` traffic per mma.sync and one exp2 per
+// score, not bytes.
 #include "common.cuh"
 
 using namespace t2v;
@@ -83,24 +79,7 @@ using namespace t2v;
 namespace {
 
 constexpr int QT = 16;
-constexpr int WARPS = 4;  // cross_mha_kernel
 constexpr int MAX_SMEM = 232448;
-
-// rows [r0, r0 + rows) of one head's D-wide column slice -> a zero-filled
-// (rows, DP) shared-memory tile with leading dimension ld; n_valid rows exist
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src, size_t row_stride,
-                                          int r0, int rows, int n_valid, int D, int lane,
-                                          int nthreads) {
-  for (int e = lane; e < rows * DP / 8; e += nthreads) {
-    const int r = e / (DP / 8);
-    const int c = (e % (DP / 8)) * 8;
-    uint4 val = zero_uint4();
-    if (r0 + r < n_valid && c < D)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
 
 // Where the rows of one attention sequence lie in a packed (rows, H*D)
 // tensor, in rows: the first row of sequence `seq` of length `len`, and the
@@ -422,126 +401,6 @@ __global__ void __launch_bounds__(256, DP <= 80 ? 2 : 1) packed_mha_kernel(
   }
 }
 
-// shared-memory layout of cross_mha_kernel for a context padded to SP rows
-template <int DP>
-struct CrossSmem {
-  static constexpr int LDK = DP + 8;
-  static constexpr int LDO = DP + 4;
-  int lds, ldp, off_v, off_warps, off_s, off_p, off_o, off_l, warp_bytes, block_bytes;
-  __host__ __device__ explicit CrossSmem(int SP) {
-    lds = SP + 4;
-    ldp = SP + 8;
-    off_v = align128(SP * LDK * 2);
-    off_warps = off_v + align128(SP * LDK * 2);
-    off_s = align128(QT * LDK * 2);
-    off_p = off_s + align128(QT * lds * 4);
-    off_o = off_p + align128(QT * ldp * 2);
-    off_l = off_o + align128(QT * LDO * 4);
-    warp_bytes = off_l + align128(QT * 4);
-    block_bytes = off_warps + WARPS * warp_bytes;
-  }
-};
-
-template <int DP>
-__global__ void __launch_bounds__(WARPS * 32) cross_mha_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, int N, int S, int SP, int H, int D, int tiles_per_block,
-    float scale) {
-  const CrossSmem<DP> L(SP);
-  constexpr int LDK = CrossSmem<DP>::LDK;
-  constexpr int LDO = CrossSmem<DP>::LDO;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hd = H * D;
-  const bf16* qb = q + (size_t)b * N * hd + (size_t)h * D;
-  const bf16* kb = k + (size_t)b * S * hd + (size_t)h * D;
-  const bf16* vb = v + (size_t)b * S * hd + (size_t)h * D;
-  bf16* ob = o + (size_t)b * N * hd + (size_t)h * D;
-
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L.off_v);
-  unsigned char* ws = smem + L.off_warps + warp * L.warp_bytes;
-  bf16* Qs = reinterpret_cast<bf16*>(ws);
-  float* Ss = reinterpret_cast<float*>(ws + L.off_s);
-  bf16* Ps = reinterpret_cast<bf16*>(ws + L.off_p);
-  float* Os = reinterpret_cast<float*>(ws + L.off_o);
-  float* l_s = reinterpret_cast<float*>(ws + L.off_l);
-
-  load_tile<DP>(Ks, LDK, kb, hd, 0, SP, S, D, threadIdx.x, WARPS * 32);
-  load_tile<DP>(Vs, LDK, vb, hd, 0, SP, S, D, threadIdx.x, WARPS * 32);
-  __syncthreads();  // the only block barrier: warps run on their own below
-
-  const int row = lane / 2;  // two lanes per query row, interleaved columns
-  const int sub = lane % 2;
-  for (int ti = warp; ti < tiles_per_block; ti += WARPS) {
-    const int q0 = (blockIdx.x * tiles_per_block + ti) * QT;
-    if (q0 >= N) break;
-    load_tile<DP>(Qs, LDK, qb, hd, q0, QT, N, D, lane, 32);
-    __syncwarp();
-
-    for (int j = 0; j < SP / 16; ++j) {
-      FragAcc acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        FragA a;
-        FragBCol bk;
-        wmma::load_matrix_sync(a, Qs + kk, LDK);
-        wmma::load_matrix_sync(bk, Ks + j * 16 * LDK + kk, LDK);
-        wmma::mma_sync(acc, a, bk, acc);
-      }
-      wmma::store_matrix_sync(Ss + j * 16, acc, L.lds, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    {
-      float m = -CUDART_INF_F;
-      for (int col = sub; col < S; col += 2) m = fmaxf(m, Ss[row * L.lds + col] * scale);
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-      const float m_use = (m == -CUDART_INF_F) ? 0.0f : m;
-      float lsum = 0.0f;
-      for (int col = sub; col < SP; col += 2) {
-        float p = 0.0f;
-        if (col < S) p = expf(Ss[row * L.lds + col] * scale - m_use);
-        lsum += p;
-        Ps[row * L.ldp + col] = __float2bfloat16(p);
-      }
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-      if (sub == 0) l_s[row] = lsum;
-    }
-    __syncwarp();
-
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j) {
-      FragAcc acc;
-      wmma::fill_fragment(acc, 0.0f);
-      for (int kk = 0; kk < SP; kk += 16) {
-        FragA a;
-        FragBRow bv;
-        wmma::load_matrix_sync(a, Ps + kk, L.ldp);
-        wmma::load_matrix_sync(bv, Vs + kk * LDK + j * 16, LDK);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(Os + j * 16, acc, LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    for (int e = lane; e < QT * DP; e += 32) {
-      const int r = e / DP;
-      const int c = e % DP;
-      if (q0 + r < N && c < D) {
-        const float l = l_s[r];
-        const float safe = (l == 0.0f) ? 1.0f : l;
-        ob[(size_t)(q0 + r) * hd + c] = __float2bfloat16(Os[r * LDO + c] / safe);
-      }
-    }
-    __syncwarp();  // Qs, Ss, Ps, Os are reused by the next tile
-  }
-}
-
 // n_seq sequences of N queries over S keys, laid out as Rows says, under
 // the plan of kernels/fused_mha.py::self_mha_plan
 template <int DP, class Rows>
@@ -561,9 +420,13 @@ int launch_packed(const bf16* q, const bf16* k, const bf16* v, bf16* o, long n_s
   if (blocks > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
   const float scale_log2 = scale * 1.4426950408889634f;
   auto kernel = kc == 32 ? packed_mha_kernel<DP, 32, Rows> : packed_mha_kernel<DP, 64, Rows>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool opted_in[2] = {false, false};  // the shared-memory attribute, once per kernel
+  if (!opted_in[kc == 64]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[kc == 64] = true;
+  }
   kernel<<<static_cast<unsigned>(blocks), warps * 32, bytes, stream>>>(
       q, k, v, o, n_pairs, N, S, H, D, inner, scale_log2, ppb, tpb, qsplit, resident);
   return static_cast<int>(cudaGetLastError());
@@ -584,29 +447,9 @@ int launch_temporal(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
                                       stream);
 }
 
-template <int DP>
-int launch_cross(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int N, int S,
-                 int H, int D, float scale, cudaStream_t stream) {
-  const int SP = (S + 15) / 16 * 16;
-  const CrossSmem<DP> L(SP);
-  cudaError_t err = cudaFuncSetAttribute(cross_mha_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         L.block_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // the longest run of query tiles per block that still leaves two blocks
-  // for each of the card's SMs; short runs re-read K/V more often
-  const int tiles = (N + QT - 1) / QT;
-  int tpb = 32;
-  while (tpb > WARPS && (long)((tiles + tpb - 1) / tpb) * H * B < 264) tpb /= 2;
-  const dim3 grid((tiles + tpb - 1) / tpb, H, B);
-  cross_mha_kernel<DP><<<grid, WARPS * 32, L.block_bytes, stream>>>(q, k, v, o, N, S, SP, H, D,
-                                                                   tpb, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Both entries return a CUDA error code; 1 (cudaErrorInvalidValue) for a
+// The entries return a CUDA error code; 1 (cudaErrorInvalidValue) for a
 // head dim that is not a multiple of 8 or above 160.
 #define T2V_DISPATCH_DP(fn, ...)                      \
   if (D % 8 != 0) return 1;                           \
@@ -621,7 +464,8 @@ int launch_cross(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, in
 // tiles a block, and whether the block's K/V stay resident.
 #define T2V_PLAN_ARGS int kc, int warps, int ppb, int tpb, int resident
 
-// q (B, N, H*D) over k/v (B, S, H*D) (self-attention: S = N)
+// q (B, N, H*D) over k/v (B, S, H*D): self-attention (S = N), and
+// cross-attention over a shared context of S < 512 rows
 extern "C" int t2v_fused_self_mha(const void* q, const void* k, const void* v, void* o, int B,
                                   int N, int S, int H, int D, float scale, T2V_PLAN_ARGS,
                                   void* stream) {
@@ -632,18 +476,6 @@ extern "C" int t2v_fused_self_mha(const void* q, const void* k, const void* v, v
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   T2V_DISPATCH_DP(launch_self, qp, kp, vp, op, B, N, S, H, D, scale, plan, st)
-}
-
-// q (B, N, H*D) over a short context k/v (B, S, H*D), S <= 128
-extern "C" int t2v_fused_cross_mha(const void* q, const void* k, const void* v, void* o, int B,
-                                   int N, int S, int H, int D, float scale, void* stream) {
-  if (S > 128) return 1;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(o);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  T2V_DISPATCH_DP(launch_cross, qp, kp, vp, op, B, N, S, H, D, scale, st)
 }
 
 // frame-axis self-attention over sample-major q/k/v (B*F, N, H*D): for every

@@ -141,6 +141,13 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.get_device()))
 
 
+def on_card(t) -> bool:
+    """Whether the dispatch may send ``t`` to a kernel at all: it lies on a
+    CUDA device. The one place the dispatch asks for the device, so that a
+    CPU test can stand in for the card."""
+    return t.is_cuda
+
+
 def require(cond: bool, what: str) -> None:
     """Validation of a CUDA tensor handed to a kernel wrapper."""
     if not cond:

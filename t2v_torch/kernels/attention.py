@@ -1,24 +1,32 @@
 """Attention dispatch of the port, as in the JAX package's
-``kernels/attention.py``:
+``kernels/attention.py``. A tensor goes to a kernel only when it lies on
+the card and the kernel takes what the model asked for: bf16, and a head
+dim of the kernel's set (``flash_takes``, ``packed_takes``,
+``relpos_takes``, one predicate per route). Every other tensor (a float32
+or float16 model on the card, any tensor on the CPU) takes the plain
+version, on its own device; this is routing by the model's dtype and
+shape, as the JAX dispatch takes XLA off the TPU and for head dims its
+kernel refuses, and the kernel wrappers still raise on what they refuse.
 
 * ``attention`` on head-folded (B, N, D): a key length >= ``FLASH_MIN_KV``
-  on a CUDA tensor goes to the flash kernel; shorter keys (the 77-token
-  cross-attention, which the JAX package also leaves to plain XLA math)
-  and CPU tensors go to ``attention_plain``;
-* ``self_attention_packed`` on packed heads (B, N, H·D): on a CUDA tensor
-  N < ``FLASH_MIN_KV`` goes to the packed short-sequence kernel and longer
-  sequences are folded and go to flash; CPU tensors take the plain path;
+  goes to the flash kernel; shorter keys (the 77-token cross-attention,
+  which the JAX package also leaves to plain XLA math) go to
+  ``attention_plain``;
+* ``self_attention_packed`` on packed heads (B, N, H·D): N <
+  ``FLASH_MIN_KV`` goes to the packed short-sequence kernel and longer
+  sequences are folded and go through ``attention``;
 * ``cross_attention_packed`` on packed heads, q (B, N, H·D) over a shared
-  context k/v (B, S, H·D): on a CUDA tensor S < ``FLASH_MIN_KV`` goes to
-  the packed cross-attention kernel, longer contexts fold and go to flash;
-  CPU tensors take the plain path;
+  context k/v (B, S, H·D): S < ``FLASH_MIN_KV`` goes to the packed kernel's
+  cross entry, longer contexts fold and go through ``attention``;
 * ``temporal_attention_packed`` on sample-major (B·F, N, H·D), attention
-  across the F frame rows of each sample: on a CUDA tensor F <
-  ``FLASH_MIN_KV`` goes to the frame-axis kernel; longer frame axes and CPU
-  tensors swap the frame and token axes and take ``self_attention_packed``.
-  No model calls it (the JAX package's models do not either: its
-  ``TemporalTransformer`` transposes once and runs ``self_attention_packed``,
-  which measured faster on the TPU).
+  across the F frame rows of each sample: F < ``FLASH_MIN_KV`` goes to the
+  frame-axis kernel; otherwise the frame and token axes are swapped and
+  ``self_attention_packed`` takes it. No model calls it (the JAX package's
+  models do not either: its ``TemporalTransformer`` transposes once and
+  runs ``self_attention_packed``, which measured faster on the TPU);
+* ``relpos_attention``, VideoCrafter's temporal attention with
+  relative-position biases in the resident (B·T, N, H·D) layout: the
+  rel-pos kernel, or ``relpos_mha_plain``.
 
 Every entry is differentiable: a CUDA tensor that needs a gradient runs the
 same kernel as the forward of its ``torch.autograd.Function`` (flash
@@ -29,18 +37,44 @@ always launched.
 
 from __future__ import annotations
 
-from t2v_torch.kernels.flash_attention import flash_attention
+import torch
+
+from t2v_torch.kernels import _build
+from t2v_torch.kernels.flash_attention import SUPPORTED_D, flash_attention
 from t2v_torch.kernels.flash_attention import flash_attention_plain as attention_plain
-from t2v_torch.kernels.fused_mha import fused_cross_mha, fused_self_mha, fused_temporal_mha
+from t2v_torch.kernels.fused_mha import HEAD_DIMS, fused_cross_mha, fused_self_mha
+from t2v_torch.kernels.fused_mha import fused_temporal_mha
 from t2v_torch.kernels.fused_mha import swap_frame_axis as _swap_frame_axis
 from t2v_torch.kernels.fused_mha import unswap_frame_axis as _unswap_frame_axis
+from t2v_torch.kernels.relpos_mha import relpos_mha, relpos_mha_plain
 
 FLASH_MIN_KV = 512
 
 
+def flash_takes(q) -> bool:
+    """Whether the flash kernel takes head-folded (B, N, D) ``q``."""
+    return _build.on_card(q) and q.dtype == torch.bfloat16 and q.shape[-1] in SUPPORTED_D
+
+
+def packed_takes(q, heads: int) -> bool:
+    """Whether the packed kernels take (rows, N, H·D) ``q`` of ``heads``
+    heads."""
+    hd = q.shape[-1]
+    return (_build.on_card(q) and q.dtype == torch.bfloat16 and hd % heads == 0
+            and hd // heads in HEAD_DIMS)
+
+
+def relpos_takes(q, heads: int) -> bool:
+    """Whether the rel-pos kernel takes (B·T, N, H·D) ``q`` of ``heads``
+    heads (a head dim that is a multiple of 8)."""
+    hd = q.shape[-1]
+    return (_build.on_card(q) and q.dtype == torch.bfloat16 and hd % heads == 0
+            and (hd // heads) % 8 == 0)
+
+
 def attention(q, k, v, scale: float | None = None):
     """(B, N, D) x (B, S, D) -> (B, N, D)."""
-    if q.is_cuda and k.shape[1] >= FLASH_MIN_KV:
+    if k.shape[1] >= FLASH_MIN_KV and flash_takes(q):
         return flash_attention(q, k, v, scale)
     return attention_plain(q, k, v, scale)
 
@@ -59,7 +93,7 @@ def self_attention_packed(q, k, v, heads: int, scale: float | None = None):
     """Self-attention on (B, N, H·D) with the heads packed in the last
     axis, as the q/k/v projections emit them."""
     b, n, hd = q.shape
-    if q.is_cuda and n < FLASH_MIN_KV:
+    if n < FLASH_MIN_KV and packed_takes(q, heads):
         return fused_self_mha(q, k, v, heads, scale)
     unfold = lambda t: t.reshape(b, n, heads, hd // heads)
     return attention_mh(unfold(q), unfold(k), unfold(v), scale).reshape(b, n, hd)
@@ -71,7 +105,7 @@ def cross_attention_packed(q, k, v, heads: int, scale: float | None = None):
     by the frames of a sample merges the frame axis into N first."""
     b, n, hd = q.shape
     s = k.shape[1]
-    if q.is_cuda and s < FLASH_MIN_KV:
+    if s < FLASH_MIN_KV and packed_takes(q, heads):
         return fused_cross_mha(q, k, v, heads, scale)
     unfold = lambda t, length: t.reshape(b, length, heads, hd // heads)
     return attention_mh(unfold(q, n), unfold(k, s), unfold(v, s), scale).reshape(b, n, hd)
@@ -83,7 +117,16 @@ def temporal_attention_packed(q, k, v, heads: int, f: int, scale: float | None =
     are sample i's frames, and every spatial token and head attends across
     them."""
     n = q.shape[1]
-    if q.is_cuda and f < FLASH_MIN_KV:
+    if f < FLASH_MIN_KV and packed_takes(q, heads):
         return fused_temporal_mha(q, k, v, heads, f, scale)
     swap = lambda t: _swap_frame_axis(t, f)
     return _unswap_frame_axis(self_attention_packed(swap(q), swap(k), swap(v), heads, scale), n)
+
+
+def relpos_attention(q, k, v, k2, v2, heads: int, frame_split: int,
+                     scale: float | None = None):
+    """Temporal attention with relative-position biases (``relpos_mha``'s
+    contract) on sample-major (B·T, N, H·D)."""
+    if relpos_takes(q, heads):
+        return relpos_mha(q, k, v, k2, v2, heads, frame_split, scale)
+    return relpos_mha_plain(q, k, v, k2, v2, heads, frame_split, scale)

@@ -21,6 +21,8 @@ saves (q, k, v, o, lse) and whose backward is the two backward kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -31,6 +33,44 @@ DKV_COUNTER = _build.LaunchCounter()   # backward, dk and dv
 DQ_COUNTER = _build.LaunchCounter()    # backward, dq
 SUPPORTED_D = (40, 64, 80, 160, 512)
 BWD_SUPPORTED_D = (40, 64, 80, 160)
+
+# a block's shared memory (H100 SXM), the forward's ring depth at most, and
+# its barriers and tile alignment (mirrored by csrc/flash_attention.cu)
+MAX_SMEM = 232448
+MAX_STAGES = 4
+SMEM_SLACK = 2048
+
+
+@dataclass(frozen=True)
+class FlashPlan:
+    """How the forward kernel cuts one call into blocks."""
+
+    bq: int           # query rows a block: 128 (two consumer warpgroups of 64), 64 at d = 512
+    bkv: int          # keys a K/V tile
+    stages: int       # K/V tiles in flight
+    smem_bytes: int
+    blocks: int
+    column_split: bool  # d = 512: both warpgroups share the query rows, each owns half of O
+
+
+@functools.lru_cache(maxsize=None)
+def flash_plan(b: int, n: int, s: int, d: int) -> FlashPlan:
+    """Tiles of the forward for (B, N, D) queries over (B, S, D) keys: 128
+    query rows a block up to d = 160, 64 at d = 512 (column split); key
+    tiles of 128 up to d = 64 when S exceeds one tile of 64, else 64 (the
+    score tile, P and O together stay within a consumer's 168 registers:
+    at d = 80 a 128-key tile spilled and serialized its wgmmas); as many
+    stages as shared memory holds, up to ``MAX_STAGES`` and no more than the
+    key tiles."""
+    boxes = -(-d // 64)
+    split = d > 160
+    bq = 64 if split else 128
+    bkv = 128 if d <= 64 and s > 64 else 64
+    q_bytes = boxes * bq * 128
+    stage = 2 * boxes * bkv * 128
+    stages = max(1, min(MAX_STAGES, (MAX_SMEM - SMEM_SLACK - q_bytes) // stage, -(-s // bkv)))
+    return FlashPlan(bq, bkv, stages, q_bytes + stages * stage + SMEM_SLACK, b * -(-n // bq),
+                     split)
 
 
 def flash_attention_plain(q, k, v, scale: float | None = None) -> torch.Tensor:
@@ -122,19 +162,26 @@ def check_bwd_args(q, k, v, do, lse, delta) -> None:
         f"flash_attention_bwd: lse and delta must be contiguous float32 ({b}, {n}) on q's device")
 
 
+@functools.cache
+def _fwd_entry():
+    """The forward's C entry, its argument types set once."""
+    fn = _build.load("flash_attention").t2v_flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _flash_cuda(q, k, v, scale: float, save_lse: bool = False):
     check_args(q, k, v)
     b, n, d = q.shape
     s = k.shape[1]
-    lib = _build.load("flash_attention")
-    fn = lib.t2v_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    plan = flash_plan(b, n, s, d)
     o = torch.empty_like(q)
     lse = torch.empty((b, n), device=q.device, dtype=torch.float32) if save_lse else None
-    err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
-             _build.ptr(lse) if save_lse else None,
-             b, n, s, d, float(scale), _build.stream_of(q))
+    err = _fwd_entry()(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+                       _build.ptr(lse) if save_lse else None,
+                       b, n, s, d, float(scale), plan.bkv, plan.stages, _build.stream_of(q))
     _build.check(err, "flash_attention")
     COUNTER.hit()
     return (o, lse) if save_lse else o

@@ -44,8 +44,6 @@ CROSS_COUNTER = _build.LaunchCounter()     # fused_cross_mha
 TEMPORAL_COUNTER = _build.LaunchCounter()  # fused_temporal_mha
 HEAD_DIMS = (40, 64, 80, 160)
 MAX_N = 512
-# contexts up to this length sit whole in shared memory; longer ones stream
-CROSS_WHOLE_KV = 128
 
 # query rows of a warp's tile, the card's SMs and a block's shared memory
 # (H100 SXM), and the blocks a plan aims for: two for each SM
@@ -86,7 +84,9 @@ def self_mha_plan(n_seq: int, n: int, s: int, heads: int, d: int) -> MHAPlan:
     ``PACK_TILES`` query tiles, and a long sequence's query tiles are split
     over blocks, each while at least ``MIN_BLOCKS`` blocks remain."""
     dp = next(p for p in (48, 64, 80, 160) if d <= p)
-    kc = 32 if s <= 32 or dp == 160 else 64
+    # 32-row key chunks at D = 160 (registers), for a sequence of one such
+    # chunk, and where they pad the keys less (77 keys: 96 against 128)
+    kc = 32 if s <= 32 or dp == 160 or -(-s // 32) * 32 < -(-s // 64) * 64 else 64
     n_chunks = -(-s // kc)
     n_qt = -(-n // QT)
     pairs = n_seq * heads
@@ -210,10 +210,9 @@ def _entry(name: str, n_ints: int, n_plan_ints: int):
 
 
 def _launch(entry: str, q, k, v, ints: tuple[int, ...], scale: float,
-            plan: MHAPlan | None = None) -> torch.Tensor:
-    """Launch a C entry ``(q, k, v, o, *ints, scale, *plan, stream)`` (the
-    whole-context cross entry takes no plan)."""
-    plan_ints = plan.ints() if plan is not None else ()
+            plan: MHAPlan) -> torch.Tensor:
+    """Launch a C entry ``(q, k, v, o, *ints, scale, *plan, stream)``."""
+    plan_ints = plan.ints()
     fn = _entry(entry, len(ints), len(plan_ints))
     o = torch.empty_like(q)
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o), *ints, float(scale),
@@ -242,11 +241,8 @@ def _self_cuda(q, k, v, heads: int, scale: float) -> torch.Tensor:
 
 def _cross_cuda(q, k, v, heads: int, scale: float) -> torch.Tensor:
     check_cross_args(q, k, v, heads)
-    if k.shape[1] <= CROSS_WHOLE_KV:
-        o = _launch("t2v_fused_cross_mha", q, k, v, _packed_ints(q, k, heads), scale)
-    else:
-        o = _launch("t2v_fused_self_mha", q, k, v, _packed_ints(q, k, heads), scale,
-                    _packed_plan(q, k, heads))
+    o = _launch("t2v_fused_self_mha", q, k, v, _packed_ints(q, k, heads), scale,
+                _packed_plan(q, k, heads))
     CROSS_COUNTER.hit()
     return o
 

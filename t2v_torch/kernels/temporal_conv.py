@@ -22,7 +22,9 @@ from the previous layer's raw sums, so the O(B*C) glue costs no launch),
 then a wgmma GEMM fed by TMA whose tile shape ``layer_plan`` picks per
 shape, then a fixed-order sum of the GEMM's per-row-tile statistics. On a
 CPU tensor it is ``layer_plain``, and the statistics glue (``input_stats``,
-``finalize_stats``) is plain torch.
+``finalize_stats``) is plain torch. ``temporal_conv_chain`` sends a chain
+to the kernel only when ``chain_takes`` its input (bf16, C a multiple of
+64); any other input on the card runs ``chain_plain`` there.
 
 ``temporal_conv_chain`` is differentiable. On a CUDA tensor that needs a
 gradient it runs as ``TemporalConvChainFunction``: the forward launches the
@@ -320,10 +322,20 @@ class TemporalConvChainFunction(torch.autograd.Function):
         return (None, *chain_backward(x, layers, ctx.eps, grad_out, ctx.needs_input_grad[1:]))
 
 
+def chain_takes(x: torch.Tensor) -> bool:
+    """Whether the layer kernel takes the chain input ``x`` (B, F, HW, C):
+    on the card, bf16, and C a multiple of 64."""
+    return _build.on_card(x) and x.dtype == torch.bfloat16 and x.shape[-1] % 64 == 0
+
+
 def temporal_conv_chain(x: torch.Tensor, layers, eps: float = 1e-5) -> torch.Tensor:
     """The fused TemporalConvBlock: identity + four GN->SiLU->conv layers,
     each layer's GroupNorm statistics taken from the previous layer's
-    epilogue. Returns a tensor of x's shape and dtype."""
+    epilogue. Returns a tensor of x's shape and dtype. On the card, an
+    input the kernel does not take (a float32 model) runs ``chain_plain``
+    there, autograd and all."""
+    if _build.on_card(x) and not chain_takes(x):
+        return chain_plain(x, layers, eps)
     flat = [t for layer in layers for t in layer]
     if x.is_cuda and _build.needs_grad(x, *flat):
         return TemporalConvChainFunction.apply(eps, x, *flat)

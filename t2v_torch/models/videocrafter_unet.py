@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from t2v_torch.core.config import VideoCrafterUNetConfig
-from t2v_torch.kernels.relpos_mha import relpos_mha
+from t2v_torch.kernels.attention import relpos_attention
 from t2v_torch.models import blocks as B
 
 
@@ -133,9 +133,9 @@ class TemporalCrossAttention(nn.Module):
       per-token projections run in this resident layout and the attention
       core folds the frame axis in its own index arithmetic.
 
-    Both go through ``relpos_mha`` (a ``(B', T, C)`` input is the resident
-    layout with one spatial token per sample); without relative positions
-    the bias tables are zeros."""
+    Both go through ``relpos_attention``, the rel-pos kernel's dispatch (a
+    ``(B', T, C)`` input is the resident layout with one spatial token per
+    sample); without relative positions the bias tables are zeros."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  temporal_length: int | None = None, use_relative_position: bool = True):
@@ -168,7 +168,7 @@ class TemporalCrossAttention(nn.Module):
             v2 = self.relative_position_v(t, t).to(q.dtype).contiguous()
         else:
             k2 = v2 = q.new_zeros((t, t, self.dim_head))
-        out = relpos_mha(q, k, v, k2, v2, self.heads, t, self.dim_head ** -0.5)
+        out = relpos_attention(q, k, v, k2, v2, self.heads, t, self.dim_head ** -0.5)
         return self.to_out[0](out.reshape(shape))
 
 

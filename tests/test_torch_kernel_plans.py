@@ -1,10 +1,11 @@
-"""The Python glue of the port's two redesigned kernels, on the CPU: the
-per-shape plans that ``kernels/temporal_conv.py::layer_plan`` and
-``kernels/fused_mha.py::self_mha_plan`` hand to the CUDA entries, at every
-shape ``chip_smoke.py`` holds those kernels against their plain versions,
-the folded GroupNorm of the temporal-conv activation pass, and the
-chain's route through one layer on raw sums. No model, no JAX compile: the
-file's tests take about a second.
+"""The Python glue of the port's redesigned kernels, on the CPU: the
+per-shape plans that ``kernels/temporal_conv.py::layer_plan``,
+``kernels/fused_mha.py::self_mha_plan`` and
+``kernels/flash_attention.py::flash_plan`` hand to the CUDA entries, at
+every shape ``chip_smoke.py`` holds those kernels against their plain
+versions, the folded GroupNorm of the temporal-conv activation pass, and
+the chain's route through one layer on raw sums. No model, no JAX
+compile: the file's tests take about a second.
 """
 
 import importlib.util
@@ -17,6 +18,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from t2v_torch.kernels import flash_attention as tfa
 from t2v_torch.kernels import fused_mha as tfm
 from t2v_torch.kernels import temporal_conv as ttc
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -33,13 +35,12 @@ INT32_MAX = 2**31 - 1
 CONV_SHAPES = chip_smoke.CONV_SHAPES + chip_smoke.CONV_LONG_SHAPES
 # (sequences, queries, keys, heads, head dim) of every launch of the packed
 # kernel that chip_smoke.py checks: self-attention, frame-axis attention
-# (one sequence per sample and token, of F rows) and the cross-attention
-# contexts too long for the whole-context kernel
+# (one sequence per sample and token, of F rows) and cross-attention over
+# a shared context (the 77-token text context included)
 MHA_CASES = (
     [(b, n, n, h, d) for b, n, h, d in chip_smoke.SELF_MHA_CASES]
     + [(b * n, f, f, h, d) for b, f, n, h, d in chip_smoke.TEMPORAL_MHA_CASES]
-    + [(b, n, s, h, d) for b, n, s, h, d in chip_smoke.CROSS_MHA_CASES
-       if s > tfm.CROSS_WHOLE_KV]
+    + [(b, n, s, h, d) for b, n, s, h, d in chip_smoke.CROSS_MHA_CASES]
 )
 
 
@@ -124,9 +125,46 @@ def test_self_mha_plan_dominant_shapes():
     assert not tfm.self_mha_plan(132, 450, 450, 2, 160).resident
 
 
+def test_self_mha_plan_for_the_text_context():
+    """VideoCrafter's cross-attention over the 77-token context: many query
+    tiles over one resident K/V of three 32-row chunks (96 padded keys, not
+    128), and at least two blocks for each SM."""
+    p = tfm.self_mha_plan(2, 16384, 77, 8, 40)
+    assert (p.resident, p.pairs_per_block, p.kc, p.dp) == (True, 1, 32, 48)
+    assert p.blocks >= 2 * SMS and p.tiles_per_block >= 16
+
+
+def test_flash_plan_is_legal():
+    """The forward's plan at every shape ``chip_smoke.py`` checks: the tile
+    shape of the head dim, a ring within shared memory, and one block per
+    (batch*head, query tile)."""
+    for b, n, s, d, _ in chip_smoke.FLASH_CASES:
+        p = tfa.flash_plan(b, n, s, d)
+        boxes = math.ceil(d / 64)
+        assert p.column_split == (d == 512) and p.bq == (64 if d == 512 else 128)
+        assert p.bkv in ((64, 128) if d <= 64 else (64,))
+        assert 1 <= p.stages <= min(tfa.MAX_STAGES, math.ceil(s / p.bkv))
+        assert p.smem_bytes == (boxes * (p.bq + 2 * p.stages * p.bkv) * 128
+                                + tfa.SMEM_SLACK) <= MAX_SMEM
+        assert p.blocks == b * math.ceil(n / p.bq) and b <= 65535  # grid (query tiles, B)
+        # the TMA maps' row stride is a multiple of 16 bytes
+        assert d * 2 % 16 == 0
+        # O's f32 registers a consumer thread holds: 64 rows x the columns
+        # its warpgroup owns, over 128 threads
+        cols = 64 * boxes // (2 if p.column_split else 1)
+        assert 64 * cols // 128 <= 128
+    # the dominant shape: 128 x 128 tiles, two or more stages in flight
+    p = tfa.flash_plan(240, 1024, 1024, 64)
+    assert (p.bq, p.bkv, p.blocks) == (128, 128, 240 * 8) and p.stages >= 2
+
+
 def test_plan_constants_match_the_cuda_sources():
     tc_src = (REPO / "t2v_torch" / "csrc" / "temporal_conv.cu").read_text()
     mha_src = (REPO / "t2v_torch" / "csrc" / "fused_mha.cu").read_text()
+    fa_src = (REPO / "t2v_torch" / "csrc" / "flash_attention.cu").read_text()
+    for name, value in (("MAX_SMEM", tfa.MAX_SMEM), ("MAX_STAGES", tfa.MAX_STAGES),
+                        ("SMEM_SLACK", tfa.SMEM_SLACK)):
+        assert re.search(rf"constexpr int {name} = {value};", fa_src), name
     for name, value in (("BK", ttc.BK), ("MAX_SMEM", ttc.MAX_SMEM),
                         ("SMEM_SLACK", ttc.SMEM_SLACK)):
         assert re.search(rf"constexpr int {name} = {value};", tc_src), name

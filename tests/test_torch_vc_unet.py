@@ -211,7 +211,7 @@ def test_vc_kernel_sites_match_the_dispatch_calls(monkeypatch, hw):
         lambda q: "fused_self_mha" if q.shape[1] < 512 else "flash_attention"))
     monkeypatch.setattr(TB, "cross_attention_packed",
                         counting("fused_cross_mha", TB.cross_attention_packed))
-    monkeypatch.setattr(tvc, "relpos_mha", counting("relpos_mha", tvc.relpos_mha))
+    monkeypatch.setattr(tvc, "relpos_attention", counting("relpos_mha", tvc.relpos_attention))
     unet = tvc.VideoCrafterUNet(CFG).eval()
     with torch.no_grad():
         unet(torch.zeros(1, 2, hw, hw, 4), torch.zeros(1), torch.zeros(1, 77, CFG.context_dim))
