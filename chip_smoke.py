@@ -9,7 +9,8 @@ and prints no result line):
 1. build every CUDA kernel from ``t2v_torch/csrc`` (one ``nvcc`` per
    source, all started together) and print the build time, and the
    registers, spills and stack of every entry function of the redesigned
-   sources (``temporal_conv.cu``, ``fused_mha.cu``, ``flash_attention.cu``);
+   sources (``temporal_conv.cu``, ``fused_mha.cu``, ``flash_attention.cu``,
+   ``flash_attention_bwd.cu``);
 2. check that each wrapper refuses malformed CUDA tensors, then hold each
    kernel against its plain PyTorch version on the card, in bf16, at every
    shape the driven paths give it (24-, 125- and 250-frame ModelScope,
@@ -20,8 +21,10 @@ and prints no result line):
    here as a yardstick only: the port never calls it), with the rate
    reached, the share of the bound, the per-shape plan of the redesigned
    kernels, their times before the redesign, and the temporal-conv layer's
-   split into activation pass and GEMM and the flash and cross-attention
-   kernels' device time (torch.profiler), with the wrappers' host time;
+   split into activation pass and GEMM and the flash (forward and both
+   backward) and cross-attention kernels' device time (torch.profiler),
+   with the wrappers' host time; the flash backward's two launches at each
+   training-path shape must give bit-identical gradients;
 3. answer one request with a small ModelScope pipeline and one with a small
    VideoCrafter pipeline whose widths every kernel takes, in bf16 on the
    card, and hold their latents and frames against the same weights in
@@ -165,13 +168,35 @@ FLASH_RAGGED = [(3, 333, 777, 64, 0.125), (3, 333, 777, 40, 40 ** -0.5), (2, 70,
                 (2, 100, 300, 512, 512 ** -0.5), (1, 65, 1030, 512, 512 ** -0.5)]
 FLASH_CASES = FLASH_TIMED + FLASH_RAGGED
 
+# samples per training step of the full-width runs: the batch that the
+# flash backward's path shapes are sized by
+TRAIN_B = 1
+TRAIN_T = 16      # frames of a training clip
+# Flash backward (B, N, S, D, scale): the 32x32 spatial self-attention of
+# one training step (TRAIN_B x 16 frames x 5 heads of 64 for ModelScope, x 8
+# heads of 40 for VideoCrafter: the two path shapes), the other head dims,
+# then ragged ones at the edges of the kernels' tiles (dkv: 128-key blocks
+# up to D = 64, 64-key ones above, 64-query tiles; dq: 128-row query
+# blocks, 64-key tiles): N and S off the tiles at D = 40, 64 and 80, S
+# under one key tile, a single query row, and N != S at D = 160
+FLASH_BWD_PATH = [(80 * TRAIN_B, 1024, 1024, 64, 0.125),
+                  (128 * TRAIN_B, 1024, 1024, 40, 40 ** -0.5)]
+FLASH_BWD_RAGGED = [(3, 333, 777, 64, 0.125), (3, 333, 777, 40, 40 ** -0.5),
+                    (2, 70, 600, 160, 0.1), (2, 600, 70, 80, 80 ** -0.5),
+                    (2, 191, 129, 40, 40 ** -0.5), (2, 65, 257, 80, 80 ** -0.5),
+                    (2, 200, 50, 64, 0.125), (2, 130, 30, 80, 80 ** -0.5),
+                    (2, 1, 513, 64, 0.125), (2, 1, 300, 40, 40 ** -0.5),
+                    (3, 129, 65, 160, 160 ** -0.5)]
+FLASH_BWD_CASES = (FLASH_BWD_PATH + [(32, 1024, 1024, 80, 80 ** -0.5),
+                                     (16, 1024, 1024, 160, 160 ** -0.5)] + FLASH_BWD_RAGGED)
+
 # the time of each redesigned kernel at its dominant shape before its
 # redesign (PERF.md section 6, measured on an "NVIDIA H100 80GB HBM3,
 # 700.00 W"), printed beside this run's
 BEFORE_REDESIGN_MS = {"temporal_conv": 0.6516, "temporal_conv_long": 3.1702,
                       "fused_self_mha": 0.3901, "fused_temporal_mha": 0.2294,
                       "flash_attention": 1.1703, "flash_attention_vae": 3.1513,
-                      "fused_cross_mha": 0.1772}
+                      "fused_cross_mha": 0.1772, "flash_bwd_dkv": 1.5542, "flash_bwd_dq": 0.6499}
 
 
 def _fail(msg: str) -> None:
@@ -504,18 +529,59 @@ def check_flash(g) -> list[KernelRecord]:
     return [rec]
 
 
-# samples per training step of the full-width runs: the batch that
-# check_flash_bwd sizes its path shapes by
-TRAIN_B = 1
-TRAIN_T = 16      # frames of a training clip
+def _bwd_plan_note(p) -> tuple[str, str]:
+    dkv = (f"{p.dkv_bkv} keys x {p.dkv_bq}-query tiles"
+           f"{' (dV / dK split)' if p.split else ''}, {p.dkv_stages} stages, "
+           f"{p.dkv_smem_bytes} B, {p.dkv_blocks} blocks")
+    dq = (f"{p.dq_bq} rows x {p.dq_bkv}-key tiles, {p.dq_stages} stages, "
+          f"{p.dq_smem_bytes} B, {p.dq_blocks} blocks")
+    return dkv, dq
+
+
+def _sdpa_bwd_yardstick(q, k, v, do, scale) -> float:
+    """Device time of the whole backward (dq, dk and dv) of one
+    scaled_dot_product_attention pinned to its flash backend, from
+    torch.profiler over the kernels that ``torch.autograd.grad`` launches
+    (autograd's host work left out); prints the backward node and the
+    kernels that ran. A yardstick only: the port never calls SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    # SDPA takes its fused paths on 4-D (batch, heads, seq, dim) input
+    q4, k4, v4 = (t[:, None].detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+    do4 = do[:, None]
+
+    def backward():
+        torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True)
+
+    for _ in range(2):
+        backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            backward()
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    ms = sum(dev_ms for dev_ms, _, _ in kernels) / 5
+    names = sorted({name[:60] for _, _, name in kernels})
+    print(f"    library: SDPA backward ({out4.grad_fn.name()}) {ms:.4f} ms of device time "
+          f"(torch.profiler); kernels: {'; '.join(names)}", flush=True)
+    return ms
 
 
 def check_flash_bwd(g, fwd: KernelRecord) -> list[KernelRecord]:
     """The two backward kernels against their plain versions on the same
-    residuals, and the forward's lse output against the plain one (counted
-    under ``fwd``, the forward kernel's record)."""
+    residuals at every ``FLASH_BWD_CASES`` shape, and the forward's lse
+    output against the plain one (counted under ``fwd``, the forward
+    kernel's record). At the two path shapes each kernel runs twice and
+    must give bit-identical gradients; the timed shapes print each
+    kernel's time beside SDPA's whole backward (device time), its own
+    device time and host time a call, and its plan."""
     import torch
-    import torch.nn.functional as F
 
     from t2v_torch.kernels import flash_attention as fa
 
@@ -524,15 +590,7 @@ def check_flash_bwd(g, fwd: KernelRecord) -> list[KernelRecord]:
                        "modelscope_lora_train")
     dq = KernelRecord("flash_bwd_dq", src, "t2v/kernels/flash_attention.py:302",
                       "modelscope_lora_train")
-    # (B, N, S, D, scale): the 32x32 spatial self-attention of one training
-    # step (TRAIN_B x 16 frames x 5 heads of 64 for ModelScope, x 8 heads of 40
-    # for VideoCrafter), the other head dims, and ragged N != S
-    ragged = [(3, 333, 777, 64, 0.125), (3, 333, 777, 40, 40 ** -0.5), (2, 70, 600, 160, 0.1),
-              (2, 600, 70, 80, 80 ** -0.5)]
-    ms_case = (80 * TRAIN_B, 1024, 1024, 64, 0.125)
-    cases = [ms_case, (128 * TRAIN_B, 1024, 1024, 40, 40 ** -0.5),
-             (32, 1024, 1024, 80, 80 ** -0.5), (16, 1024, 1024, 160, 160 ** -0.5), *ragged]
-    for case in cases:
+    for case in FLASH_BWD_CASES:
         b, n, s, d, scale = case
         q, do = (torch.randn((b, n, d), generator=g, device="cuda").to(torch.bfloat16)
                  for _ in range(2))
@@ -543,34 +601,55 @@ def check_flash_bwd(g, fwd: KernelRecord) -> list[KernelRecord]:
         _, lse_want = fa.flash_attention_fwd_plain(q, k, v, scale)
         _compare(fwd, f"lse {label}", lse, lse_want)
         delta = fa.bwd_delta(o, do)
-        got_dk, got_dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
-        got_dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
-        want_dk, want_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
-        want_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+        args = (q, k, v, do, lse, delta, scale)
+        got_dk, got_dv = fa.flash_attention_bwd_dkv(*args)
+        got_dq = fa.flash_attention_bwd_dq(*args)
+        want_dk, want_dv = fa.flash_attention_bwd_dkv_plain(*args)
+        want_dq = fa.flash_attention_bwd_dq_plain(*args)
         torch.cuda.synchronize()
         _compare(dkv, f"dk {label}", got_dk, want_dk)
         _compare(dkv, f"dv {label}", got_dv, want_dv)
         _compare(dq, f"dq {label}", got_dq, want_dq)
-        del got_dk, got_dv, got_dq, want_dk, want_dv, want_dq, lse_want
-        if case in ragged:  # checked, not timed
+        del want_dk, want_dv, want_dq, lse_want
+        if case in FLASH_BWD_PATH:
+            again_dk, again_dv = fa.flash_attention_bwd_dkv(*args)
+            again_dq = fa.flash_attention_bwd_dq(*args)
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b_) for a, b_ in ((got_dk, again_dk), (got_dv, again_dv),
+                                                     (got_dq, again_dq))]
+            print(f"  flash_bwd          {label:38s} two launches bit-identical "
+                  f"(dk, dv, dq): {same}", flush=True)
+            if not all(same):
+                _fail(f"flash backward {label}: two launches differ: {same}")
+            del again_dk, again_dv, again_dq
+        del got_dk, got_dv, got_dq
+        dkv_plan, dq_plan = _bwd_plan_note(fa.flash_bwd_plan(b, n, s, d))
+        if case in FLASH_BWD_RAGGED:  # checked, not timed
+            print(f"    plan {label}: dkv {dkv_plan}; dq {dq_plan}", flush=True)
             continue
-        args = (q, k, v, do, lse, delta, scale)
-        # the library yardstick: the whole backward (dq, dk and dv) of
-        # scaled_dot_product_attention through autograd, timed alone
-        with torch.enable_grad():
-            q4, k4, v4 = (t[:, None].detach().requires_grad_() for t in (q, k, v))
-            out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
-        lib_ms = _time_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do[:, None],
-                                                      retain_graph=True), 10)
-        del out4, q4, k4, v4
+        lib_ms = _sdpa_bwd_yardstick(q, k, v, do, scale)
         prod = 2.0 * b * n * s * d
         in_bytes = 2.0 * b * d * (2 * n + 2 * s) + 8.0 * b * n
-        dkv.timed((b, n, s, d), _time_ms(lambda: fa.flash_attention_bwd_dkv(*args), 10),
-                  _time_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args), 3), lib_ms,
-                  4 * prod, in_bytes + 4.0 * b * s * d, main=case == ms_case)
-        dq.timed((b, n, s, d), _time_ms(lambda: fa.flash_attention_bwd_dq(*args), 10),
-                 _time_ms(lambda: fa.flash_attention_bwd_dq_plain(*args), 3), lib_ms,
-                 3 * prod, in_bytes + 2.0 * b * n * d, main=case == ms_case)
+        pair = 0.0
+        for rec, call, plain, kernel, products, out_bytes, plan in (
+                (dkv, lambda: fa.flash_attention_bwd_dkv(*args),
+                 lambda: fa.flash_attention_bwd_dkv_plain(*args), "flash_bwd_dkv_kernel", 4,
+                 4.0 * b * s * d, dkv_plan),
+                (dq, lambda: fa.flash_attention_bwd_dq(*args),
+                 lambda: fa.flash_attention_bwd_dq_plain(*args), "flash_bwd_dq_kernel", 3,
+                 2.0 * b * n * d, dq_plan)):
+            rec.timed((b, n, s, d), _time_ms(call, 10), _time_ms(plain, 3), lib_ms,
+                      products * prod, in_bytes + out_bytes, main=case == FLASH_BWD_PATH[0],
+                      plan=plan)
+            dev = _kernel_device_ms(call, kernel)
+            pair += dev
+            print(f"  device {rec.name:16s} {str((b, n, s, d)):26s} "
+                  + (f"{dev:.4f} ms ({products * prod / dev / 1e9:.1f} TFLOP/s; torch.profiler)"
+                     if dev else "not measured (the profiler recorded no device time)")
+                  + f"; host {_host_us(call, 20):.1f} us a call", flush=True)
+        if pair and lib_ms:
+            print(f"  device flash_bwd pair  {str((b, n, s, d)):26s} {pair:.4f} ms against "
+                  f"SDPA's whole backward {lib_ms:.4f} ms: {pair / lib_ms:.2f}x", flush=True)
         _release()
     return [dkv, dq]
 
@@ -769,7 +848,7 @@ def check_geglu(g) -> list[KernelRecord]:
 
 # the sources of the redesigned kernels, whose every entry
 # function's registers, spills and stack the build prints
-REDESIGNED = ("temporal_conv", "fused_mha", "flash_attention")
+REDESIGNED = ("temporal_conv", "fused_mha", "flash_attention", "flash_attention_bwd")
 
 
 def _kernel_label(mangled: str) -> str:

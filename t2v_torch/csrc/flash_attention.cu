@@ -118,20 +118,6 @@ __device__ __forceinline__ void pv_k16(float* o, const uint32_t* p, uint64_t dv)
   else wgmma_rs_n256(o, p, dv);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 2^x by the special-function unit alone (ex2.approx.ftz): exp2f adds
-// range handling for results below 2^-126, which a probability that small
-// does not need (faster at d = 64 on an H100)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // One consumer warpgroup: the loop over the key tiles, then the epilogue.
 // Up to d = 64 (one output box) the loop is FlashAttention-3's: the Q.K^T
 // of tile j is issued together with the P.V of tile j - 1 and the softmax

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma
-// kernels (temporal_conv.cu, flash_attention.cu): mbarriers, TMA loads and
-// stores through tensor maps, named barriers, wgmma shared-memory
-// descriptors for 128-byte-swizzled tiles, the wgmma instructions, and the
-// host-side tensor-map encoder (cuTensorMapEncodeTiled, looked up through
-// the runtime's entry-point query, so no -lcuda).
+// kernels (temporal_conv.cu, flash_attention.cu, flash_attention_bwd.cu):
+// mbarriers, TMA loads and stores through tensor maps, named barriers,
+// wgmma shared-memory descriptors for 128-byte-swizzled tiles, the wgmma
+// instructions, bf16 packing and a fast 2^x for the attention kernels'
+// register tiles, and the host-side tensor-map encoder
+// (cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query, so no -lcuda).
 #pragma once
 
 #include <cuda.h>
@@ -101,6 +103,21 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// two floats rounded to bf16 in one 32-bit word, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x by the special-function unit alone (ex2.approx.ftz): exp2f adds
+// range handling for results below 2^-126, which a probability that small
+// does not need (faster at d = 64 on an H100)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // keeps the compiler from moving accesses of an accumulator across the

@@ -8,7 +8,8 @@
 
 On a CUDA tensor these launch ``csrc/flash_attention.cu`` and the two
 kernels of ``csrc/flash_attention_bwd.cu`` (bf16; D of 40, 64, 80, 160, and
-512 forward only); on a CPU tensor they run ``flash_attention_plain``,
+512 forward only), cut into blocks by ``flash_plan`` and
+``flash_bwd_plan``; on a CPU tensor they run ``flash_attention_plain``,
 ``flash_attention_fwd_plain`` and ``flash_attention_bwd_plain`` (its halves
 ``flash_attention_bwd_dkv_plain`` and ``flash_attention_bwd_dq_plain``):
 dot-product attention with an f32 softmax, the probabilities (and, in the
@@ -34,8 +35,9 @@ DQ_COUNTER = _build.LaunchCounter()    # backward, dq
 SUPPORTED_D = (40, 64, 80, 160, 512)
 BWD_SUPPORTED_D = (40, 64, 80, 160)
 
-# a block's shared memory (H100 SXM), the forward's ring depth at most, and
-# its barriers and tile alignment (mirrored by csrc/flash_attention.cu)
+# a block's shared memory (H100 SXM), a ring's depth at most, and the
+# barriers and tile alignment (mirrored by csrc/flash_attention.cu and
+# csrc/flash_attention_bwd.cu)
 MAX_SMEM = 232448
 MAX_STAGES = 4
 SMEM_SLACK = 2048
@@ -53,6 +55,12 @@ class FlashPlan:
     column_split: bool  # d = 512: both warpgroups share the query rows, each owns half of O
 
 
+def _ring_stages(resident: int, stage: int, tiles: int) -> int:
+    """As many stages as shared memory holds beside the resident tiles, up
+    to ``MAX_STAGES`` and no more than the tiles streamed."""
+    return max(1, min(MAX_STAGES, (MAX_SMEM - SMEM_SLACK - resident) // stage, tiles))
+
+
 @functools.lru_cache(maxsize=None)
 def flash_plan(b: int, n: int, s: int, d: int) -> FlashPlan:
     """Tiles of the forward for (B, N, D) queries over (B, S, D) keys: 128
@@ -68,9 +76,58 @@ def flash_plan(b: int, n: int, s: int, d: int) -> FlashPlan:
     bkv = 128 if d <= 64 and s > 64 else 64
     q_bytes = boxes * bq * 128
     stage = 2 * boxes * bkv * 128
-    stages = max(1, min(MAX_STAGES, (MAX_SMEM - SMEM_SLACK - q_bytes) // stage, -(-s // bkv)))
+    stages = _ring_stages(q_bytes, stage, -(-s // bkv))
     return FlashPlan(bq, bkv, stages, q_bytes + stages * stage + SMEM_SLACK, b * -(-n // bq),
                      split)
+
+
+# the backward's fixed tiles (mirrored by csrc/flash_attention_bwd.cu):
+# queries a streamed dkv tile, query rows a dq block, keys a streamed dq tile
+DKV_BQ = 64
+DQ_BQ = 128
+DQ_BKV = 64
+
+
+@dataclass(frozen=True)
+class FlashBwdPlan:
+    """How the two backward kernels cut one call into blocks."""
+
+    dkv_bkv: int      # keys a dkv block: 128 (two consumer warpgroups of 64), 64 in the split
+    dkv_bq: int       # queries a streamed Q / dO tile
+    dkv_stages: int   # Q / dO tiles in flight
+    dkv_smem_bytes: int
+    dkv_blocks: int
+    split: bool       # d > 64: both warpgroups take the block's 64 keys, one owns dV, one dK
+    dq_bq: int        # query rows a dq block (two consumer warpgroups of 64)
+    dq_bkv: int       # keys a streamed K / V tile
+    dq_stages: int
+    dq_smem_bytes: int
+    dq_blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def flash_bwd_plan(b: int, n: int, s: int, d: int) -> FlashBwdPlan:
+    """Tiles of the backward for (B, N, D) queries over (B, S, D) keys.
+    dkv: 128-key blocks up to d = 64, each consumer warpgroup owning 64 keys
+    and both their gradients; at d = 80 and 160 64-key blocks whose
+    warpgroups split dV and dK (a 64-key tile's S^T, dP^T, dK and dV would
+    pass a thread's 224 registers); Q / dO streamed in 64-query tiles with
+    their lse and delta. dq: 128-row query blocks over 64-key K / V tiles.
+    Each ring as deep as shared memory holds, up to ``MAX_STAGES``."""
+    boxes = -(-d // 64)
+    split = boxes > 1
+    bkv = 64 if split else 128
+    dkv_resident = 2 * boxes * bkv * 128
+    dkv_stage = 2 * boxes * DKV_BQ * 128 + 2 * DKV_BQ * 4
+    dkv_stages = _ring_stages(dkv_resident, dkv_stage, -(-n // DKV_BQ))
+    dq_resident = 2 * boxes * DQ_BQ * 128
+    dq_stage = 2 * boxes * DQ_BKV * 128
+    dq_stages = _ring_stages(dq_resident, dq_stage, -(-s // DQ_BKV))
+    return FlashBwdPlan(
+        bkv, DKV_BQ, dkv_stages, dkv_resident + dkv_stages * dkv_stage + SMEM_SLACK,
+        b * -(-s // bkv), split,
+        DQ_BQ, DQ_BKV, dq_stages, dq_resident + dq_stages * dq_stage + SMEM_SLACK,
+        b * -(-n // DQ_BQ))
 
 
 def flash_attention_plain(q, k, v, scale: float | None = None) -> torch.Tensor:
@@ -187,15 +244,23 @@ def _flash_cuda(q, k, v, scale: float, save_lse: bool = False):
     return (o, lse) if save_lse else o
 
 
-def _bwd_launch(entry: str, q, k, v, do, lse, delta, outs, scale: float) -> None:
+@functools.cache
+def _bwd_entry(entry: str):
+    """A backward C entry, its argument types set once: seven or eight
+    pointers, (B, N, S, D), the scale, three plan ints and the stream."""
+    fn = getattr(_build.load("flash_attention_bwd"), entry)
+    outs = 2 if entry.endswith("dkv") else 1
+    fn.argtypes = ([ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 4 + [ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_launch(entry: str, q, k, v, do, lse, delta, outs, scale: float, tiles) -> None:
     check_bwd_args(q, k, v, do, lse, delta)
     b, n, d = q.shape
-    fn = getattr(_build.load("flash_attention_bwd"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * (6 + len(outs)) + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(*(_build.ptr(t) for t in (q, k, v, do, lse, delta, *outs)),
-             b, n, k.shape[1], d, float(scale), _build.stream_of(q))
+    err = _bwd_entry(entry)(*(_build.ptr(t) for t in (q, k, v, do, lse, delta, *outs)),
+                            b, n, k.shape[1], d, float(scale), *tiles, _build.stream_of(q))
     _build.check(err, entry)
 
 
@@ -203,8 +268,10 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float):
     """(dk, dv), accumulated over the query tiles."""
     if not q.is_cuda:
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    p = flash_bwd_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("t2v_flash_attention_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale)
+    _bwd_launch("t2v_flash_attention_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale,
+                (p.dkv_bkv, p.dkv_bq, p.dkv_stages))
     DKV_COUNTER.hit()
     return dk, dv
 
@@ -213,8 +280,10 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float):
     """dq, accumulated over the key/value tiles."""
     if not q.is_cuda:
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    p = flash_bwd_plan(q.shape[0], q.shape[1], k.shape[1], q.shape[2])
     dq = torch.empty_like(q)
-    _bwd_launch("t2v_flash_attention_bwd_dq", q, k, v, do, lse, delta, (dq,), scale)
+    _bwd_launch("t2v_flash_attention_bwd_dq", q, k, v, do, lse, delta, (dq,), scale,
+                (p.dq_bq, p.dq_bkv, p.dq_stages))
     DQ_COUNTER.hit()
     return dq
 

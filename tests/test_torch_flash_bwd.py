@@ -7,12 +7,21 @@ kernel ``autograd.Function``s, in fp32 on the CPU, against the JAX package.
   on both sides, another summation order; gradients of O(1) inputs are
   O(0.1));
 * the same backward against autograd through ``flash_attention_plain``;
+* the two CUDA backward kernels' tile loops modelled in float32 (the
+  transposed S^T / dP^T tiles of dkv with lse and delta by column, tiles
+  zero-filled past N, S and d as TMA fills them, lse and delta 0 past N,
+  dq's ragged last key tile masked) against the plain halves at ragged
+  shapes, one sample of which has lse so negative that exp(-lse)
+  overflows: rtol = atol = 1e-5 (float32 on both sides in another
+  summation order; that sample's gradients reach O(10));
 * each Function's gradients (on the CPU its forward is the plain version,
   its backward the code the card runs after the kernel forward) against the
   JAX package's own backward of the matching entry: atol 2e-5 for the
   attention ones, atol = rtol = 1e-3 for the four-layer conv chain (the
   tolerance the JAX package's own chain-gradient test uses).
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -123,6 +132,111 @@ def test_backward_refuses_the_vae_head_dim_by_name():
         args.update(bad)
         with pytest.raises(ValueError):
             tflash.check_bwd_args(**args)
+
+
+def _tma_tile(x, row0, rows, width):
+    """Rows row0..row0 + rows of x (R, d) as a TMA box loads them: zeros past
+    R and in the columns d..width."""
+    out = torch.zeros(rows, width)
+    part = x[row0:row0 + rows]
+    out[:part.shape[0], :x.shape[1]] = part
+    return out
+
+
+def _rows(a, row0, count):
+    """``count`` values of the row vector a from ``row0``, zeros past its
+    end: a tile's lse or delta as the kernels load them."""
+    out = torch.zeros(count)
+    part = a[row0:row0 + count]
+    out[:part.numel()] = part
+    return out
+
+
+def _dkv_model(q, k, v, do, lse, delta, scale):
+    """The dkv kernel's loop: per (sample, key tile) S^T = K Q^T and
+    dP^T = V dO^T over streamed query tiles, P^T and dS^T with lse and
+    delta by column, dV += P^T dO, dK += dS^T Q. No mask: a query past N
+    has zero q and dO and lse = delta = 0, so p = 1 and ds = 0."""
+    b, n, d = q.shape
+    s = k.shape[1]
+    plan = tflash.flash_bwd_plan(b, n, s, d)
+    bkv, bq, width = plan.dkv_bkv, plan.dkv_bq, 64 * math.ceil(d / 64)
+    dk, dv = torch.zeros(b, s, d), torch.zeros(b, s, d)
+    for bh in range(b):
+        for kv0 in range(0, s, bkv):
+            kt, vt = (_tma_tile(t[bh], kv0, bkv, width) for t in (k, v))
+            acc_k, acc_v = torch.zeros(bkv, width), torch.zeros(bkv, width)
+            for q0 in range(0, n, bq):
+                qt, dot = (_tma_tile(t[bh], q0, bq, width) for t in (q, do))
+                l, dl = (_rows(t[bh], q0, bq) for t in (lse, delta))
+                pt = torch.exp((kt @ qt.T) * scale - l[None, :])
+                dst = pt * ((vt @ dot.T) - dl[None, :]) * scale
+                acc_v += pt.to(q.dtype).float() @ dot
+                acc_k += dst.to(q.dtype).float() @ qt
+            rows = min(bkv, s - kv0)
+            dk[bh, kv0:kv0 + rows] = acc_k[:rows, :d]
+            dv[bh, kv0:kv0 + rows] = acc_v[:rows, :d]
+    return dk, dv
+
+
+def _dq_model(q, k, v, do, lse, delta, scale, mask=True):
+    """The dq kernel's loop: per (sample, query tile) S = Q K^T and
+    dP = dO V^T over streamed key tiles, dS with each row's lse and delta
+    (0 and 0 past N), dQ += dS K; the ragged last key tile masked (unless
+    ``mask`` is False)."""
+    b, n, d = q.shape
+    s = k.shape[1]
+    plan = tflash.flash_bwd_plan(b, n, s, d)
+    bq, bkv, width = plan.dq_bq, plan.dq_bkv, 64 * math.ceil(d / 64)
+    dq = torch.zeros(b, n, d)
+    for bh in range(b):
+        for q0 in range(0, n, bq):
+            qt, dot = (_tma_tile(t[bh], q0, bq, width) for t in (q, do))
+            rows = min(bq, n - q0)
+            l, dl = (_rows(t[bh], q0, bq) for t in (lse, delta))
+            acc = torch.zeros(bq, width)
+            for kv0 in range(0, s, bkv):
+                kt, vt = (_tma_tile(t[bh], kv0, bkv, width) for t in (k, v))
+                p = torch.exp((qt @ kt.T) * scale - l[:, None])
+                ds = p * ((dot @ vt.T) - dl[:, None]) * scale
+                if mask and s - kv0 < bkv:
+                    ds[:, s - kv0:] = 0.0
+                acc += ds.to(q.dtype).float() @ kt
+            dq[bh, q0:q0 + rows] = acc[:rows, :d]
+    return dq
+
+
+# (B, N, S, D): N and S off every tile at D = 40 (128-key dkv blocks), 80
+# (the dV / dK split's 64-key blocks) and 160 (three column boxes), S under
+# one key tile, a single query row
+MODEL_CASES = [(3, 70, 150, 40), (3, 130, 30, 80), (3, 1, 65, 160)]
+
+
+@pytest.mark.parametrize("case", MODEL_CASES, ids=lambda c: f"b{c[0]}n{c[1]}s{c[2]}d{c[3]}")
+def test_kernel_tile_loops_match_the_plain_halves(case):
+    """The edge argument of ``csrc/flash_attention_bwd.cu`` before any chip
+    time: rows and columns that TMA zero-fills contribute nothing, and dq's
+    mask of the ragged last key tile keeps exp(-lse) of a zero-filled key
+    from overflowing into a 0 * inf. Sample 1's scores are all about -190
+    (q = -30 u, k = u), so its lse is too: the mask is what keeps its dq
+    finite."""
+    b, n, s, d = case
+    scale = d ** -0.5
+    q, k, v, do = (torch.tensor(a) for a in _qkvg((b, n, s, d, None), 8))
+    q[1] = -30.0
+    k[1] = 1.0
+    lse = tflash.flash_attention_fwd_plain(q, k, v, scale)[1]
+    delta = tflash.bwd_delta(torch.randn(b, n, d, generator=torch.Generator().manual_seed(8)), do)
+    assert lse[1].max() < -100  # exp(-lse) overflows float32
+    want_dk, want_dv = tflash.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    want_dq = tflash.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    got_dk, got_dv = _dkv_model(q, k, v, do, lse, delta, scale)
+    got_dq = _dq_model(q, k, v, do, lse, delta, scale)
+    for name, got, want in (("dk", got_dk, want_dk), ("dv", got_dv, want_dv),
+                            ("dq", got_dq, want_dq)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5, err_msg=name)
+    # without the mask the zero-filled keys are not inert
+    assert torch.isnan(_dq_model(q, k, v, do, lse, delta, scale, mask=False)).any()
 
 
 def test_fused_self_function_matches_jax_backward():

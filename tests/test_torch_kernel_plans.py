@@ -1,7 +1,8 @@
 """The Python glue of the port's redesigned kernels, on the CPU: the
 per-shape plans that ``kernels/temporal_conv.py::layer_plan``,
-``kernels/fused_mha.py::self_mha_plan`` and
-``kernels/flash_attention.py::flash_plan`` hand to the CUDA entries, at
+``kernels/fused_mha.py::self_mha_plan``,
+``kernels/flash_attention.py::flash_plan`` and ``::flash_bwd_plan`` hand
+to the CUDA entries, at
 every shape ``chip_smoke.py`` holds those kernels against their plain
 versions, the folded GroupNorm of the temporal-conv activation pass, and
 the chain's route through one layer on raw sums. No model, no JAX
@@ -158,6 +159,55 @@ def test_flash_plan_is_legal():
     assert (p.bq, p.bkv, p.blocks) == (128, 128, 240 * 8) and p.stages >= 2
 
 
+def test_flash_bwd_plan_is_legal():
+    """The backward's plan at every shape ``chip_smoke.py`` checks: the
+    tiles of the head dim, both rings within shared memory, the f32 tiles a
+    consumer thread holds within its registers, one block per (batch*head,
+    key tile) for dkv and per (batch*head, query tile) for dq, and the TMA
+    maps' 16-byte strides; then the plan at the two training-path shapes."""
+    for b, n, s, d, _ in chip_smoke.FLASH_BWD_CASES:
+        p = tfa.flash_bwd_plan(b, n, s, d)
+        boxes = math.ceil(d / 64)
+        # dkv: 128-key blocks, two warpgroups of 64 keys, up to d = 64; 64-key
+        # blocks whose warpgroups split dV and dK above; 64-query tiles.
+        # dq: 128 query rows over 64-key tiles
+        assert p.split == (d > 64) and p.dkv_bkv == (64 if p.split else 128)
+        assert (p.dkv_bq, p.dq_bq, p.dq_bkv) == (tfa.DKV_BQ, tfa.DQ_BQ, tfa.DQ_BKV) == (64, 128, 64)
+        assert 1 <= p.dkv_stages <= min(tfa.MAX_STAGES, math.ceil(n / p.dkv_bq))
+        assert 1 <= p.dq_stages <= min(tfa.MAX_STAGES, math.ceil(s / p.dq_bkv))
+        # shared memory: the resident tiles and the ring (dkv's stages carry
+        # 64 lse and 64 delta values in f32 beside the Q and dO tiles)
+        assert p.dkv_smem_bytes == (boxes * (2 * p.dkv_bkv + 2 * p.dkv_stages * p.dkv_bq) * 128
+                                    + 2 * p.dkv_stages * p.dkv_bq * 4
+                                    + tfa.SMEM_SLACK) <= MAX_SMEM
+        assert p.dq_smem_bytes == (boxes * (2 * p.dq_bq + 2 * p.dq_stages * p.dq_bkv) * 128
+                                   + tfa.SMEM_SLACK) <= MAX_SMEM
+        # f32 registers a consumer thread holds: 64-row tiles over 128
+        # threads. dkv: S^T and dP^T (64 x 64 queries) and dK and dV (64 x
+        # the padded head dim), only one of the two in the split; dq: S and
+        # dP (64 x 64 keys) and dQ. Within 128 of the 168 a thread gets,
+        # the rest for addresses and the bf16 fragments, up to d = 80; at
+        # d = 160 160, which ptxas spills a little (PERF.md)
+        tile = lambda cols: 64 * cols // 128  # noqa: E731
+        grads = 1 if p.split else 2
+        dkv_regs = 2 * tile(p.dkv_bq) + grads * tile(64 * boxes)
+        dq_regs = 2 * tile(p.dq_bkv) + tile(64 * boxes)
+        assert max(dkv_regs, dq_regs) <= (128 if d <= 80 else 160)
+        # one block per (batch*head, tile), B on grid.y
+        assert p.dkv_blocks == b * math.ceil(s / p.dkv_bkv)
+        assert p.dq_blocks == b * math.ceil(n / p.dq_bq)
+        assert b <= 65535
+        # the TMA maps' row stride is a multiple of 16 bytes
+        assert d * 2 % 16 == 0
+    # the path shapes: ModelScope's 80 heads of 64 and VideoCrafter's 128 of
+    # 40 at 1024 tokens, both unsplit with full rings, 8 key tiles and 8
+    # query tiles a head
+    for (b, n, s, d, _), blocks in zip(chip_smoke.FLASH_BWD_PATH, (640, 1024)):
+        p = tfa.flash_bwd_plan(b, n, s, d)
+        assert (p.dkv_bkv, p.split, p.dkv_stages, p.dkv_blocks) == (128, False, 4, blocks)
+        assert (p.dq_stages, p.dq_blocks) == (4, blocks)
+
+
 def test_plan_constants_match_the_cuda_sources():
     tc_src = (REPO / "t2v_torch" / "csrc" / "temporal_conv.cu").read_text()
     mha_src = (REPO / "t2v_torch" / "csrc" / "fused_mha.cu").read_text()
@@ -172,6 +222,15 @@ def test_plan_constants_match_the_cuda_sources():
     assert re.search(rf"constexpr int MAX_SMEM = {tfm.MAX_SMEM};", mha_src)
     for bm, bn in ttc.TILES:
         assert f"T2V_GEMM({bm}, {bn})" in tc_src
+    bwd_src = (REPO / "t2v_torch" / "csrc" / "flash_attention_bwd.cu").read_text()
+    for name, value in (("MAX_SMEM", tfa.MAX_SMEM), ("MAX_STAGES", tfa.MAX_STAGES),
+                        ("SMEM_SLACK", tfa.SMEM_SLACK), ("DKV_BQ", tfa.DKV_BQ),
+                        ("DQ_BQ", tfa.DQ_BQ), ("DQ_BKV", tfa.DQ_BKV)):
+        assert re.search(rf"constexpr int {name} = {value};", bwd_src), name
+    # the dkv split: 64-key tiles from two 64-column boxes (d > 64) on
+    assert "SPLIT = NB > 1;" in bwd_src and "DKV_BKV = SPLIT ? 64 : 128;" in bwd_src
+    for d in tfa.BWD_SUPPORTED_D:
+        assert f"T2V_DKV({d})" in bwd_src and f"T2V_DQ({d})" in bwd_src
 
 
 @pytest.mark.parametrize("mean", [0.0, 8.0])
