@@ -10,7 +10,7 @@ and prints no result line):
    source, all started together) and print the build time, and the
    registers, spills and stack of every entry function of the redesigned
    sources (``temporal_conv.cu``, ``fused_mha.cu``, ``flash_attention.cu``,
-   ``flash_attention_bwd.cu``);
+   ``flash_attention_bwd.cu``, ``relpos_mha.cu``);
 2. check that each wrapper refuses malformed CUDA tensors, then hold each
    kernel against its plain PyTorch version on the card, in bf16, at every
    shape the driven paths give it (24-, 125- and 250-frame ModelScope,
@@ -22,7 +22,7 @@ and prints no result line):
    reached, the share of the bound, the per-shape plan of the redesigned
    kernels, their times before the redesign, and the temporal-conv layer's
    split into activation pass and GEMM and the flash (forward and both
-   backward) and cross-attention kernels' device time (torch.profiler),
+   backward), cross-attention and rel-pos kernels' device time (torch.profiler),
    with the wrappers' host time; the flash backward's two launches at each
    training-path shape must give bit-identical gradients;
 3. answer one request with a small ModelScope pipeline and one with a small
@@ -190,13 +190,34 @@ FLASH_BWD_RAGGED = [(3, 333, 777, 64, 0.125), (3, 333, 777, 40, 40 ** -0.5),
 FLASH_BWD_CASES = (FLASH_BWD_PATH + [(32, 1024, 1024, 80, 80 ** -0.5),
                                      (16, 1024, 1024, 160, 160 ** -0.5)] + FLASH_BWD_RAGGED)
 
+# Rel-pos temporal attention (B, T, N, heads, D): VideoCrafter's temporal
+# attention over 16 frames at its four levels (CFG batch 2; timed), then
+# ragged ones (checked, not timed): 5, 24, 40 and 64 frames (one to four
+# 16-frame tiles, keys masked past T), head dims 16, 24 and 160 (columns
+# past D read as zeros), token counts that leave a tile's last run short,
+# tiles of 15 pairs, and K2/V2 staged in shared memory at 5 and 24 frames
+# as well as read from device memory
+RELPOS_PATH = [(2, 16, 1024, 8, 40), (2, 16, 256, 8, 80), (2, 16, 64, 8, 160),
+               (2, 16, 16, 8, 160)]
+RELPOS_RAGGED = [(2, 5, 37, 3, 24), (2, 24, 8, 2, 40), (1, 40, 6, 2, 160), (2, 16, 1023, 8, 40),
+                 (1, 64, 5, 2, 160), (2, 5, 4096, 3, 24), (2, 24, 4096, 1, 16)]
+RELPOS_CASES = RELPOS_PATH + RELPOS_RAGGED
+
 # the time of each redesigned kernel at its dominant shape before its
 # redesign (PERF.md section 6, measured on an "NVIDIA H100 80GB HBM3,
 # 700.00 W"), printed beside this run's
 BEFORE_REDESIGN_MS = {"temporal_conv": 0.6516, "temporal_conv_long": 3.1702,
                       "fused_self_mha": 0.3901, "fused_temporal_mha": 0.2294,
                       "flash_attention": 1.1703, "flash_attention_vae": 3.1513,
-                      "fused_cross_mha": 0.1772, "flash_bwd_dkv": 1.5542, "flash_bwd_dq": 0.6499}
+                      "fused_cross_mha": 0.1772, "flash_bwd_dkv": 1.5542, "flash_bwd_dq": 0.6499,
+                      "relpos_mha": 0.1874, "relpos_mha (32, 256, 640, 8)": 0.1277,
+                      "relpos_mha (32, 64, 1280, 8)": 0.1054,
+                      "relpos_mha (32, 16, 1280, 8)": 0.0589}
+# the rel-pos wrapper's host time a call before its redesign, least and
+# most over its four runs at the dominant shape (us; that wrapper bound its
+# C entry and the entry queried the device on every call): tools/relpos_ab.py
+# on the parent tree, "NVIDIA H100 80GB HBM3, 700.00 W"
+RELPOS_HOST_US_BEFORE = (31.2, 50.6)
 
 
 def _fail(msg: str) -> None:
@@ -725,21 +746,19 @@ def check_fused_mha(g) -> list[KernelRecord]:
 
 
 def check_relpos(g) -> list[KernelRecord]:
+    """Row 7 at every ``RELPOS_CASES`` shape against ``relpos_mha_plain``.
+    The path shapes are timed beside the plain version with the kernel's
+    device time (torch.profiler), the wrapper's host time a call, the plan
+    and the time before the redesign. No library call computes this function:
+    scaled_dot_product_attention takes an additive score bias but has no
+    term for softmax(sim) . V2."""
     import torch
 
-    from t2v_torch.kernels.relpos_mha import relpos_mha, relpos_mha_plain
+    from t2v_torch.kernels.relpos_mha import relpos_mha, relpos_mha_plain, relpos_plan
 
     rec = KernelRecord("relpos_mha", "t2v_torch/csrc/relpos_mha.cu",
                        "t2v/kernels/relpos_mha.py:80", "videocrafter_16f")
-    # (B, T, N, heads, D): VideoCrafter's temporal attention over 16 frames at
-    # its four levels (CFG batch 2); a ragged one; one above 16 frames; one
-    # whose bias tables do not fit shared memory and are read through L2.
-    # No library call computes this function: scaled_dot_product_attention
-    # takes an additive score bias but has no term for softmax(sim) . V2.
-    ragged = [(2, 5, 37, 3, 24), (2, 24, 8, 2, 40), (1, 40, 6, 2, 160)]
-    cases = [(2, 16, 1024, 8, 40), (2, 16, 256, 8, 80), (2, 16, 64, 8, 160),
-             (2, 16, 16, 8, 160), *ragged]
-    for b, t, n, h, d in cases:
+    for b, t, n, h, d in RELPOS_CASES:
         hd = h * d
         q, k, v = (torch.randn((b * t, n, hd), generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
@@ -748,15 +767,35 @@ def check_relpos(g) -> list[KernelRecord]:
         got = relpos_mha(q, k, v, k2, v2, h, t)
         want = relpos_mha_plain(q, k, v, k2, v2, h, t)
         torch.cuda.synchronize()
-        _compare(rec, f"x{(b * t, n, hd)} heads={h} T={t}", got, want)
+        label = f"x{(b * t, n, hd)} heads={h} T={t}"
+        _compare(rec, label, got, want)
         del got, want
-        if (b, t, n, h, d) in ragged:  # checked, not timed
+        p = relpos_plan(b, t, n, h, d)
+        plan = (f"{p.tokens_per_block} token(s) x {p.heads_per_block} head(s) a tile, "
+                f"{p.tiles} tiles over {p.blocks} blocks of {p.warps} warps, tables "
+                f"{'in shared memory' if p.tables else 'through L2'}, DP {p.dp}, "
+                f"{p.smem_bytes} B")
+        if (b, t, n, h, d) in RELPOS_RAGGED:  # checked, not timed
+            print(f"    plan {label}: {plan}", flush=True)
             continue
-        ms = _time_ms(lambda: relpos_mha(q, k, v, k2, v2, h, t), 20)
+        shape = (b * t, n, hd, h)
+        call = lambda: relpos_mha(q, k, v, k2, v2, h, t)  # noqa: E731
+        ms = _time_ms(call, 20)
         plain_ms = _time_ms(lambda: relpos_mha_plain(q, k, v, k2, v2, h, t), 3)
         items = b * n * h
-        rec.timed((b * t, n, hd, h), ms, plain_ms, None, 8.0 * items * t * t * d,
-                  2.0 * (4 * b * t * n * hd + 2 * t * t * d), main=n == 1024)
+        main = n == 1024
+        rec.timed(shape, ms, plain_ms, None, 8.0 * items * t * t * d,
+                  2.0 * (4 * b * t * n * hd + 2 * t * t * d), main=main, plan=plan,
+                  before_key=None if main else f"relpos_mha {shape}")
+        dev = _kernel_device_ms(call, "relpos_mha_kernel")
+        before = (f" (before the redesign {RELPOS_HOST_US_BEFORE[0]:.1f}-"
+                  f"{RELPOS_HOST_US_BEFORE[1]:.1f} us)" if main else "")
+        print(f"  device relpos_mha      {str(shape):26s} "
+              + (f"{dev:.4f} ms (torch.profiler)" if dev
+                 else "not measured (the profiler recorded no device time)")
+              + f"; host {_host_us(call, 20):.1f} us a call{before}", flush=True)
+        del q, k, v
+        _release()
     return [rec]
 
 
@@ -848,7 +887,8 @@ def check_geglu(g) -> list[KernelRecord]:
 
 # the sources of the redesigned kernels, whose every entry
 # function's registers, spills and stack the build prints
-REDESIGNED = ("temporal_conv", "fused_mha", "flash_attention", "flash_attention_bwd")
+REDESIGNED = ("temporal_conv", "fused_mha", "flash_attention", "flash_attention_bwd",
+              "relpos_mha")
 
 
 def _kernel_label(mangled: str) -> str:

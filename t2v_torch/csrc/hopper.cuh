@@ -70,6 +70,21 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
       : "memory");
 }
 
+// 1-D bulk copies of `bytes` contiguous bytes (a multiple of 16, both ends
+// 16-byte aligned): global -> shared, completing on an mbarrier's byte
+// count, and shared -> global in the thread's bulk group
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(src),
+               "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }

@@ -46,6 +46,7 @@ from t2v_torch.kernels.fused_mha import HEAD_DIMS, fused_cross_mha, fused_self_m
 from t2v_torch.kernels.fused_mha import fused_temporal_mha
 from t2v_torch.kernels.fused_mha import swap_frame_axis as _swap_frame_axis
 from t2v_torch.kernels.fused_mha import unswap_frame_axis as _unswap_frame_axis
+from t2v_torch.kernels.relpos_mha import MAX_D as RELPOS_MAX_D
 from t2v_torch.kernels.relpos_mha import relpos_mha, relpos_mha_plain
 
 FLASH_MIN_KV = 512
@@ -66,10 +67,10 @@ def packed_takes(q, heads: int) -> bool:
 
 def relpos_takes(q, heads: int) -> bool:
     """Whether the rel-pos kernel takes (B·T, N, H·D) ``q`` of ``heads``
-    heads (a head dim that is a multiple of 8)."""
+    heads (a head dim that is a multiple of 8 up to ``relpos_mha.MAX_D``)."""
     hd = q.shape[-1]
     return (_build.on_card(q) and q.dtype == torch.bfloat16 and hd % heads == 0
-            and (hd // heads) % 8 == 0)
+            and (hd // heads) % 8 == 0 and hd // heads <= RELPOS_MAX_D)
 
 
 def attention(q, k, v, scale: float | None = None):

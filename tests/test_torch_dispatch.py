@@ -27,7 +27,7 @@ DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 # 40, 80 and 160 (8 heads), the VAE's single head of 512; and two no kernel takes
 FLASH_DIMS = (40, 64, 80, 160, 512, 48, 32)
 PACKED_HEADS = ((5, 64), (10, 64), (20, 64), (8, 40), (8, 80), (8, 160), (1, 512), (2, 32))
-RELPOS_HEADS = ((8, 40), (8, 80), (8, 160), (4, 20))
+RELPOS_HEADS = ((8, 40), (8, 80), (8, 160), (4, 20), (1, 168))
 CHANNELS = (320, 640, 1280, 64, 32)
 
 
@@ -45,7 +45,7 @@ def test_route_predicates(monkeypatch):
     nothing else; off the card nothing goes to a kernel."""
     bf16_routes = ([d in tflash.SUPPORTED_D for d in FLASH_DIMS]
                    + [d in tfused.HEAD_DIMS for _, d in PACKED_HEADS]
-                   + [d % 8 == 0 for _, d in RELPOS_HEADS]
+                   + [d % 8 == 0 and d <= trelpos.MAX_D for _, d in RELPOS_HEADS]
                    + [c % 64 == 0 for c in CHANNELS])
     assert not any(_routes(torch.bfloat16))  # CPU tensors
     monkeypatch.setattr(_build, "on_card", lambda t: True)

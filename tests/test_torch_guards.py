@@ -192,6 +192,8 @@ def _relpos_args(**over):
     dict(k=_bf16(8, 5, 80)),                              # shapes differ
     dict(frame_split=3),                                  # does not divide B*T
     dict(frame_split=8, k2=_bf16(8, 8, 40), v2=_bf16(8, 8, 40), heads=4),   # head dim 20
+    dict(q=_bf16(8, 6, 168), k=_bf16(8, 6, 168), v=_bf16(8, 6, 168), k2=_bf16(4, 4, 168),
+         v2=_bf16(4, 4, 168), heads=1),                   # head dim 168, above the kernel's 160
     dict(k2=_bf16(4, 4, 80)),                             # table width
     dict(v2=_bf16(4, 5, 40)),                             # table frames
     dict(k2=torch.zeros(4, 4, 40)),                       # float32 table

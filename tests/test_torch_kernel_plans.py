@@ -1,8 +1,8 @@
 """The Python glue of the port's redesigned kernels, on the CPU: the
 per-shape plans that ``kernels/temporal_conv.py::layer_plan``,
 ``kernels/fused_mha.py::self_mha_plan``,
-``kernels/flash_attention.py::flash_plan`` and ``::flash_bwd_plan`` hand
-to the CUDA entries, at
+``kernels/flash_attention.py::flash_plan`` and ``::flash_bwd_plan`` and
+``kernels/relpos_mha.py::relpos_plan`` hand to the CUDA entries, at
 every shape ``chip_smoke.py`` holds those kernels against their plain
 versions, the folded GroupNorm of the temporal-conv activation pass, and
 the chain's route through one layer on raw sums. No model, no JAX
@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from t2v_torch.kernels import flash_attention as tfa
 from t2v_torch.kernels import fused_mha as tfm
+from t2v_torch.kernels import relpos_mha as trp
 from t2v_torch.kernels import temporal_conv as ttc
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -208,6 +209,54 @@ def test_flash_bwd_plan_is_legal():
         assert (p.dq_stages, p.dq_blocks) == (4, blocks)
 
 
+# (B, T, N, heads, D) of every rel-pos launch chip_smoke.py checks, and the
+# training path's (one sample of 16 frames at VideoCrafter's four levels)
+RELPOS_SHAPES = chip_smoke.RELPOS_CASES + [
+    (chip_smoke.TRAIN_B, chip_smoke.TRAIN_T, n, 8, d)
+    for n, d in ((1024, 40), (256, 80), (64, 160), (16, 160))]
+
+
+def test_relpos_plan_is_legal():
+    """Every shape planned: the head dim's padded width and the frame
+    tiles, a tile of whole heads of each token (a divisor of H) and at
+    most one 16-row group of pairs, shared memory as the kernel lays it out
+    within a block's limit, at most 1,024 threads (8 warps at DP = 160,
+    whose threads keep up to 255 registers), every tile owned by one of at
+    most SMS persistent blocks, and the tile count within an int."""
+    for b, t, n, h, d in RELPOS_SHAPES:
+        p = trp.relpos_plan(b, t, n, h, d)
+        assert p.dp == min(x for x in trp.PADDED_D if x >= d) and d <= trp.MAX_D
+        assert p.kt == math.ceil(t / 16) and 1 <= p.kt <= 4
+        assert h % p.heads_per_block == 0 and 1 <= p.tokens_per_block <= n
+        assert p.tokens_per_block == 1 or p.heads_per_block == h
+        assert 1 <= p.pairs <= 16 and p.buffers in (1, 2)
+        assert p.smem_bytes == trp.relpos_smem_bytes(
+            16 * p.kt, d, p.pairs, t, p.tables, p.buffers) <= MAX_SMEM
+        assert p.warps == (16 if p.dp <= 80 else 8) and 32 * p.warps <= 1024
+        assert p.tiles == b * math.ceil(n / p.tokens_per_block) * (h // p.heads_per_block)
+        assert p.blocks == min(p.tiles, SMS) and p.tiles + p.blocks <= INT32_MAX
+        assert len(p.ints()) == 6
+        # tables staged only where each block's share of q, k, v and out
+        # is at least their size
+        if p.tables:
+            assert 2 * t * t * d * 2 * SMS <= 4 * b * t * n * h * d * 2
+
+
+def test_relpos_plan_path_shapes():
+    """VideoCrafter's 16-frame levels: 16-pair tiles (2 tokens x 8 heads)
+    with K2/V2 staged and two tile buffers at D = 40; 16-pair tiles with
+    the tables read from L2 at D = 80; 8 pairs at 64 tokens of D = 160, and
+    2 pairs (head groups) at 16 tokens, where more would leave SMs idle."""
+    p = trp.relpos_plan(2, 16, 1024, 8, 40)
+    assert (p.pairs, p.tables, p.buffers, p.tiles, p.blocks) == (16, True, 2, 1024, SMS)
+    p = trp.relpos_plan(2, 16, 256, 8, 80)
+    assert (p.pairs, p.tables, p.buffers) == (16, False, 1)
+    p = trp.relpos_plan(2, 16, 64, 8, 160)
+    assert (p.pairs, p.tables, p.tiles) == (8, False, 128)
+    p = trp.relpos_plan(2, 16, 16, 8, 160)
+    assert (p.tokens_per_block, p.heads_per_block, p.tiles) == (1, 2, 128)
+
+
 def test_plan_constants_match_the_cuda_sources():
     tc_src = (REPO / "t2v_torch" / "csrc" / "temporal_conv.cu").read_text()
     mha_src = (REPO / "t2v_torch" / "csrc" / "fused_mha.cu").read_text()
@@ -231,6 +280,21 @@ def test_plan_constants_match_the_cuda_sources():
     assert "SPLIT = NB > 1;" in bwd_src and "DKV_BKV = SPLIT ? 64 : 128;" in bwd_src
     for d in tfa.BWD_SUPPORTED_D:
         assert f"T2V_DKV({d})" in bwd_src and f"T2V_DQ({d})" in bwd_src
+    # rel-pos: the limits, the padded head dims of the dispatch, the warps a
+    # block, and the shared-memory layout that relpos_smem_bytes mirrors
+    rp_src = (REPO / "t2v_torch" / "csrc" / "relpos_mha.cu").read_text()
+    assert re.search(rf"constexpr int MAX_SMEM = {trp.MAX_SMEM};", rp_src)
+    assert re.search(rf"constexpr int MAX_D = {trp.MAX_D};", rp_src)
+    assert f"T > {trp.MAX_T}" in rp_src
+    for dp in trp.PADDED_D[:-1]:
+        assert f"if (D <= {dp}) T2V_RELPOS({dp});" in rp_src
+    assert f"T2V_RELPOS({trp.PADDED_D[-1]});" in rp_src
+    assert "warps > (DP <= 80 ? 16 : 8)" in rp_src
+    for piece in ("return 2 * ((d / 8) % 2 ? d : d + 8);", "return 16 * ((pairs * d / 8) | 1);",
+                  "return tp * (tp + 4) + 4;",
+                  "return 32 + (tables ? 2 * t * tp * table_row_bytes(d) : 0) +",
+                  "(nbuf * 3 * tp + 2 * t) * frame_bytes(d, pairs) + pairs * slot_words(tp) * 4;"):
+        assert piece in rp_src, piece
 
 
 @pytest.mark.parametrize("mean", [0.0, 8.0])
