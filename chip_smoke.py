@@ -45,8 +45,20 @@ and prints no result line):
    tower, 8-head UNet with relative-position temporal attention, SD VAE):
    two requests (16 frames at 256x256, 20 DDIM steps, CFG 9), counted
    launches, and the breakdown of one UNet call. No plain version of a
-   kernel may run on a CUDA tensor in phases 4 to 7;
-6. the ModelScope request modes (``drive_modes``), on a second full-width
+   kernel may run on a CUDA tensor in phases 4 to 8;
+6. ModelScope from a model directory to an mp4 (``drive_generate``): a
+   full-width directory in the published layout (``configuration.json``,
+   float32 ``text2video_pytorch_model.pth``, ``VQGAN_autoencoder.pth``
+   under ``state_dict``, ``open_clip_pytorch_model.bin`` with the published
+   49,408-row embedding, the repo's test vocab under the published name)
+   written from a seeded bf16 pipeline into a temporary directory, loaded by
+   ``load_pipeline`` with every parameter bit-identical; one 24-frame
+   request each from the source pipeline, the loaded one, ``cli.generate``
+   and the stdlib API server on 127.0.0.1 (identical frames, launch
+   counts); a 'Main Model Only' pair through ``run`` (``release_aux``
+   frees at least the VAE's and text tower's bytes, the reloaded request's
+   frames are identical); the write, load, CLI, API and release numbers;
+7. the ModelScope request modes (``drive_modes``), on a second full-width
    ModelScope pipeline: first TPU rows 9 and 10, which no model calls, on
    the activations of one 24-frame UNet call (forward hooks capture the q/k/v
    of its 34 temporal self-attentions and the projections of its 33 GEGLU
@@ -57,7 +69,7 @@ and prints no result line):
    same with DeepCache interval 2 (PSNR printed), the same windowed by a
    callback every 5 steps (bit-identical latents), and one its callback
    interrupts; every launch count against the topology's;
-7. training, on the pipelines of phases 4 and 5: hold the gradients of the
+8. training, on the pipelines of phases 4 and 5: hold the gradients of the
    seven kernel ``autograd.Function``s against autograd through the plain
    versions at one training-path shape each; hold one small LoRA training
    step in bf16 on the card (loss and gradients) against float32 on the
@@ -69,11 +81,11 @@ and prints no result line):
    weights did not, the EMA follows its rule, and the launch counts equal
    the topology's (5 flash backward pairs per step); print seconds per
    step, peak memory, and one profiled step's device time and idle share;
-8. print the card's name and power limit, one ``{"kernels": [...]}`` line,
+9. print the card's name and power limit, one ``{"kernels": [...]}`` line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a GPU, and in a directory without the port.
-``--only kernels|small|modelscope|modes|videocrafter|train`` runs the
+``--only kernels|small|modelscope|generate|modes|videocrafter|train`` runs the
 build and one group of phases (for work on one of them; it prints no result line).
 """
 
@@ -1412,6 +1424,301 @@ def _serve_modelscope(pipe) -> dict:
     return launches
 
 
+# the repo's small BPE merge list, shipped under the published vocab name
+VOCAB = REPO / "tests" / "data" / "tokenizer_merges.txt.gz"
+GEN_PROMPT = "a (bunny:1.3) in a [forest], masterpiece"
+GEN_SEED = 1234
+
+
+def _write_model_dir(pipe, out: Path) -> int:
+    """A ModelScope directory in the published layout from ``pipe``:
+    ``configuration.json``, ``text2video_pytorch_model.pth`` and
+    ``open_clip_pytorch_model.bin`` (float32 state dicts; the text tower's
+    file with a visual key and ``logit_scale`` beside it, which the loader
+    ignores), ``VQGAN_autoencoder.pth`` (float32, under ``state_dict`` with
+    ``first_stage_model.`` prefixes and a ``loss.`` key) and the vocab.
+    Returns the bytes written."""
+    import shutil
+
+    import torch
+
+    cfg = pipe.unet_cfg
+    out.mkdir(parents=True)
+    model_cfg = {"unet_in_dim": cfg.in_dim, "unet_dim": cfg.dim, "unet_y_dim": cfg.y_dim,
+                 "unet_context_dim": cfg.context_dim, "unet_out_dim": cfg.out_dim,
+                 "unet_dim_mult": list(cfg.dim_mult), "unet_num_heads": cfg.num_heads,
+                 "unet_head_dim": cfg.head_dim, "unet_res_blocks": cfg.num_res_blocks,
+                 "unet_attn_scales": list(cfg.attn_scales), "unet_dropout": cfg.dropout,
+                 "temporal_attention": str(cfg.temporal_attention),
+                 "num_timesteps": cfg.num_timesteps,
+                 "mean_type": cfg.parameterization}
+    (out / "configuration.json").write_text(json.dumps({"framework": "pytorch", "model": {
+        "type": "latent-text-to-video-synthesis", "model_cfg": model_cfg,
+        "model_args": {"ckpt_clip": "open_clip_pytorch_model.bin",
+                       "ckpt_unet": "text2video_pytorch_model.pth",
+                       "ckpt_autoencoder": "VQGAN_autoencoder.pth"}}}))
+    f32 = lambda m, prefix="": {prefix + k: v.float().cpu() for k, v in m.state_dict().items()}
+    torch.save(f32(pipe.unet), out / "text2video_pytorch_model.pth")
+    vae = f32(pipe.vae, "first_stage_model.")
+    vae["loss.logvar"] = torch.zeros(())
+    torch.save({"state_dict": vae}, out / "VQGAN_autoencoder.pth")
+    clip = f32(pipe.text_encoder.model)
+    clip.update({"visual.proj": torch.zeros(1280, 1024), "logit_scale": torch.tensor(4.6052)})
+    torch.save(clip, out / "open_clip_pytorch_model.bin")
+    shutil.copy(VOCAB, out / "bpe_simple_vocab_16e6.txt.gz")
+    return sum(f.stat().st_size for f in out.iterdir())
+
+
+@contextlib.contextmanager
+def _recording_infer():
+    """While active, every ``ModelScopePipeline.infer`` result is appended
+    to the yielded list (the CLI and the API return no frames)."""
+    from t2v_torch.pipeline.pipeline import ModelScopePipeline
+
+    results, infer = [], ModelScopePipeline.infer
+
+    def recording(self, *args, **kwargs):
+        res = infer(self, *args, **kwargs)
+        results.append(res)
+        return res
+
+    ModelScopePipeline.infer = recording
+    try:
+        yield results
+    finally:
+        ModelScopePipeline.infer = infer
+
+
+@contextlib.contextmanager
+def _no_frame_files(active: bool):
+    """Without ``cv2`` on the host, ``run`` writes no PNG and no mp4: every
+    call of it gets ``save_frames=False`` and ``skip_video_creation``."""
+    from t2v_torch.pipeline import run as run_mod
+
+    run = run_mod.run
+
+    def without_files(args, out_args=None, **kwargs):
+        out_args = (out_args or run_mod.T2VOutputArgs()).replace(skip_video_creation=True)
+        return run(args, out_args, **{**kwargs, "save_frames": False})
+
+    if active:
+        run_mod.run = without_files
+    try:
+        yield
+    finally:
+        run_mod.run = run
+
+
+def _module_bytes(*modules) -> int:
+    return sum(p.numel() * p.element_size() for m in modules for p in m.parameters())
+
+
+def _same_weights(pipe, src) -> int:
+    """Fail unless every tensor of ``pipe``'s three models equals
+    ``src``'s bit for bit, on the same device in the same dtype; returns
+    how many there are. (A function of its own, so that no module stays
+    referenced by a loop variable after it.)"""
+    import torch
+
+    mismatched, n = [], 0
+    for a, b in zip(_models(pipe), _models(src)):
+        sa, sb = a.state_dict(), b.state_dict()
+        if sa.keys() != sb.keys():
+            _fail(f"generate: loaded keys differ: {sorted(set(sa) ^ set(sb))[:5]}")
+        n += len(sa)
+        mismatched += [k for k in sa if sa[k].dtype != sb[k].dtype
+                       or sa[k].device != sb[k].device or not torch.equal(sa[k], sb[k])]
+    if mismatched:
+        _fail(f"generate: {len(mismatched)} loaded tensors differ from the source, e.g. "
+              f"{mismatched[:3]}")
+    return n
+
+
+def _same_frames(label, got, want) -> None:
+    import numpy as np
+
+    if got.shape != want.shape or not np.array_equal(got, want):
+        diff = (np.abs(got.astype(int) - want.astype(int)).max() if got.shape == want.shape
+                else f"shapes {got.shape} / {want.shape}")
+        _fail(f"{label}: frames differ from the source pipeline's (max level difference {diff})")
+
+
+def drive_generate() -> dict:
+    """ModelScope from a model directory to an mp4: write a full-width
+    directory in the published layout from a seeded bf16 pipeline, load it
+    with ``load_pipeline`` (every parameter bit-identical), answer the same
+    24-frame request with the source and the loaded pipeline (identical
+    frames), then through ``cli.generate.main`` and through the stdlib API
+    server on 127.0.0.1 (launch counts, identical frames), then a 'Main
+    Model Only' pair (``release_aux`` frees the VAE's and the text tower's
+    memory; the reloaded request's frames are identical). Returns the
+    launches of the CLI and API requests."""
+    import os
+    import shutil
+    import tempfile
+    import urllib.parse
+    import urllib.request
+
+    import torch
+
+    from t2v_torch.api.stdlib_server import serve
+    from t2v_torch.cli import generate
+    from t2v_torch.core.config import CLIPTextConfig, ModelScopeUNetConfig, T2VArgs, T2VOutputArgs
+    from t2v_torch.core.dtypes import Policy
+    from t2v_torch.models.modelscope_unet import count_kernel_sites
+    from t2v_torch.pipeline import pipeline as pl
+    from t2v_torch.pipeline import run as run_mod
+    from t2v_torch.text.tokenizer import CLIPTokenizer
+
+    try:
+        import cv2  # noqa: F401
+        files = True
+    except ImportError:
+        files = False
+        print("generate: cv2 cannot be imported here: the CLI, API and run requests pass "
+              "--skip-video-creation and save_frames=False (the CPU tests cover the PNG and "
+              "mp4 writes)", flush=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_models_", dir=REPO))
+    launches, srv, saved_root = {}, None, os.environ.get("T2V_MODELS_ROOT")
+    try:
+        src = pl.ModelScopePipeline.random_init(ModelScopeUNetConfig(), Policy.bf16(), seed=3,
+                                                device="cuda",
+                                                clip_cfg=CLIPTextConfig.vit_h_14())
+        _perturb_zero_leaves(src)
+        src.text_encoder.tokenizer = CLIPTokenizer.from_vocab_file(str(VOCAB))
+        emb = tuple(src.text_encoder.model.token_embedding.weight.shape)
+        if emb != (49408, 1024):
+            _fail(f"generate: the text tower's embedding is {emb}, not the published "
+                  "(49408, 1024)")
+        model_dir = root / "text2video" / "chip_smoke"
+        t0 = time.perf_counter()
+        nbytes = _write_model_dir(src, model_dir)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        os.sync()  # the load below then reads clean pages, not the write's dirty ones
+        t_sync = time.perf_counter() - t0
+
+        _release()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pipe = pl.load_pipeline(str(model_dir))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        n = _same_weights(pipe, src)
+        print(f"generate: wrote {nbytes / 1e9:.3f} GB of float32 files in {t_write:.2f} s "
+              f"(then os.sync {t_sync:.2f} s); "
+              f"load_pipeline {t_load:.2f} s ({nbytes / 1e9 / t_load:.2f} GB/s), "
+              f"{(torch.cuda.memory_allocated() - mem0) / 2**30:.2f} GiB on the card; {n} "
+              f"tensors bit-identical to the source", flush=True)
+        t0 = time.perf_counter()
+        again = pl.ModelScopePipeline.from_model_dir(str(model_dir))
+        torch.cuda.synchronize()
+        t_again = time.perf_counter() - t0
+        _same_weights(again, src)
+        del again
+        _release()
+        print(f"generate: a second from_model_dir of the same files {t_again:.2f} s "
+              f"({nbytes / 1e9 / t_again:.2f} GB/s)", flush=True)
+
+        expected = _expected(count_kernel_sites(pipe.unet_cfg, T, LAT, LAT), STEPS, 1)
+        args = T2VArgs(prompt=GEN_PROMPT, seed=GEN_SEED, steps=STEPS, frames=T, width=PX,
+                       height=PX, cfg_scale=CFG)
+        want = _answer("generate: source pipeline 24f", src, args, T, expected, STEPS)[1].frames
+        got = _answer("generate: loaded pipeline 24f", pipe, args, T, expected, STEPS)[1]
+        _same_frames("generate: the loaded pipeline", got.frames, want)
+        t_in_process = sum(got.timings.values())
+        del src
+        _release()
+
+        argv = ["--model-dir", str(model_dir), "--prompt", GEN_PROMPT, "--seed", str(GEN_SEED),
+                "--steps", str(STEPS), "--frames", str(T), "--width", str(PX), "--height",
+                str(PX), "--cfg-scale", str(CFG), "--outdir", str(root / "cli"), "--json"]
+        if not files:
+            argv.append("--skip-video-creation")
+        _reset_counters()
+        t0 = time.perf_counter()
+        with _no_plain_on_cuda(), _no_frame_files(not files), _recording_infer() as results:
+            generate.main(argv)
+        t_cli = time.perf_counter() - t0
+        launches["generate_cli"] = counts = _read_counters()
+        if len(results) != 1 or counts != expected:
+            _fail(f"generate: the CLI answered {len(results)} requests with launches {counts}, "
+                  f"expected 1 with {expected}")
+        _same_frames("generate: the CLI request", results[0].frames, want)
+        tm = results[0].timings
+        print(f"generate: CLI {t_cli:.3f} s for load, request and outputs; its request "
+              f"{sum(tm.values()):.3f} s (text {tm['text']:.3f}, sample {tm['sample']:.3f}, "
+              f"decode {tm['decode']:.3f}) against {t_in_process:.3f} s in process; "
+              f"launches {counts}", flush=True)
+
+        os.environ["T2V_MODELS_ROOT"] = str(root)
+        srv = serve(port=0, block=False)
+        host, port = srv.server_address
+        query = (f"prompt={urllib.parse.quote(GEN_PROMPT)}&model=chip_smoke&seed={GEN_SEED}"
+                 f"&steps={STEPS}&frames={T}&width={PX}&height={PX}&cfg_scale={CFG}")
+        _reset_counters()
+        t0 = time.perf_counter()
+        with _no_plain_on_cuda(), _no_frame_files(not files), _recording_infer() as results:
+            req = urllib.request.Request(f"http://{host}:{port}/t2v/run?{query}", data=b"",
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                status, body = r.status, json.loads(r.read())
+        t_api = time.perf_counter() - t0
+        launches["generate_api"] = counts = _read_counters()
+        if status != 200 or len(body["mp4s"]) != int(files) or len(results) != 1:
+            _fail(f"generate: the API answered {status} with {len(body.get('mp4s', []))} "
+                  f"videos and {len(results)} requests")
+        if counts != expected:
+            _fail(f"generate: API launches {counts}, expected {expected}")
+        if results[0].frames is None or pl._PIPELINE_CACHE.get(
+                (os.path.abspath(model_dir), torch.bfloat16, "cuda")) is not pipe:
+            _fail("generate: the API request did not run on the cached pipeline")
+        _same_frames("generate: the API request", results[0].frames, want)
+        tm = results[0].timings
+        print(f"generate: API {t_api:.3f} s a request over HTTP (its infer {sum(tm.values()):.3f} "
+              f"s), {len(body['mp4s'][0]) if files else 0} bytes of data URL; launches {counts}",
+              flush=True)
+
+        mem = torch.cuda.memory_allocated()
+        aux = _module_bytes(pipe.vae, pipe.text_encoder.model)
+        frames, freed = [], []
+        for i in range(2):
+            _reset_counters()
+            t0 = time.perf_counter()
+            with _no_plain_on_cuda(), _no_frame_files(not files), _recording_infer() as results:
+                run_mod.run(args, T2VOutputArgs(), pipe=pipe, outdir=str(root / "run"),
+                            keep_in_vram="Main Model Only")
+            t_run = time.perf_counter() - t0
+            gc.collect()
+            freed.append(mem - torch.cuda.memory_allocated())
+            if pipe.vae is not None or pipe.text_encoder is not None or freed[-1] < aux:
+                _fail(f"generate: 'Main Model Only' request {i} freed {freed[-1]} bytes, less "
+                      f"than the VAE's and text tower's {aux}")
+            if _read_counters() != expected:
+                _fail(f"generate: 'Main Model Only' launches {_read_counters()}")
+            frames.append(results[0].frames)
+            print(f"generate: 'Main Model Only' request {i}: {t_run:.3f} s (reload included from "
+                  f"the second), memory_allocated {mem / 2**30:.3f} -> "
+                  f"{(mem - freed[-1]) / 2**30:.3f} GiB (VAE + text tower "
+                  f"{aux / 2**30:.3f} GiB)", flush=True)
+        for i, f in enumerate(frames):
+            _same_frames(f"generate: 'Main Model Only' request {i}", f, want)
+        del pipe
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        if saved_root is None:
+            os.environ.pop("T2V_MODELS_ROOT", None)
+        else:
+            os.environ["T2V_MODELS_ROOT"] = saved_root
+        run_mod._warm_pipe = None
+        pl._PIPELINE_CACHE.clear()
+        shutil.rmtree(root, ignore_errors=True)
+        _release()
+    return launches
+
+
 def _capture_unet_path(pipe, recs: dict) -> dict:
     """The path of rows 9 and 10: one CFG-batched 24-frame UNet call of the
     full-width pipeline with forward hooks that keep the q/k/v of every
@@ -2054,7 +2361,7 @@ def _print_breakdown(kernels, busy: float, top: int = 10) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=("kernels", "small", "modelscope", "modes",
+    parser.add_argument("--only", choices=("kernels", "small", "modelscope", "generate", "modes",
                                            "videocrafter", "train"),
                         help="run the build and one group of phases; prints no result line")
     only = parser.parse_args().only
@@ -2101,6 +2408,9 @@ def main() -> int:
     if only in (None, "modelscope", "train"):
         launches.update(drive_modelscope(serve or only == "modelscope", train))
         print(f"ModelScope done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    if only in (None, "generate"):
+        launches.update(drive_generate())
+        print(f"generate done at {time.perf_counter() - t_start:.0f} s", flush=True)
     if only in (None, "modes"):
         by_name = {r.name: r for r in records}
         recs = {n: by_name.get(n) or KernelRecord(n, "", "", "") for n in

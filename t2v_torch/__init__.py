@@ -5,3 +5,5 @@ NVIDIA H100 with kernels written by hand for Hopper (``t2v_torch/csrc``).
 Entry points run on the card unless the caller asks for the CPU, where
 every kernel is replaced by its plain PyTorch version.
 """
+
+__version__ = "0.1.0"

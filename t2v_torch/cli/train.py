@@ -4,8 +4,10 @@ Clips are VAE-encoded on the device, captions text-encoded, and the train
 step (``t2v_torch/parallel/train.py``) runs for either UNet family, as a
 LoRA over the ModelScope UNet's linears or as a full fine-tune with an
 optional EMA shadow. LoRA runs save reference-compatible stable-lora
-``.safetensors``; full runs save the weights as safetensors; both save the
-full train state for ``--resume``.
+``.safetensors``; full runs save the weights as safetensors (with the BPE
+vocab, so that the directory loads with ``--model-dir``); both save the
+full train state for ``--resume``. ``--model-dir`` fine-tunes a ModelScope
+directory (the published layout or a saved one) in the device's dtype.
 
 Usage:
   python -m t2v_torch.cli.train --data-dir /data/webvid --tiny \\
@@ -28,10 +30,11 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--data-dir", required=True)
     p.add_argument("--meta-path")
-    p.add_argument("--model-dir", help="not ported yet: the checkpoint loaders are a later slice")
+    p.add_argument("--model-dir", help="ModelScope model directory to fine-tune (the published "
+                   "layout, or one this trainer saved); default: seeded random weights")
     p.add_argument("--model-type", default="ModelScope", choices=["ModelScope", "VideoCrafter"],
                    help="UNet family to train (both share the step)")
-    p.add_argument("--vc-ckpt", help="not ported yet: the checkpoint loaders are a later slice")
+    p.add_argument("--vc-ckpt", help="not ported yet: the VideoCrafter loaders are a later slice")
     p.add_argument("--out", default="ckpts")
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--frames", type=int, default=16)
@@ -69,9 +72,10 @@ def main(argv=None) -> int:
     if ns.sp != 1 or ns.tp != 1:
         raise SystemExit("--sp/--tp: meshes are not ported yet (the multi-GPU slice); "
                          "the port trains on one device")
-    if ns.model_dir or ns.vc_ckpt:
-        raise SystemExit("--model-dir/--vc-ckpt: the checkpoint loaders are not ported yet; "
-                         "omit them for seeded random weights")
+    if ns.vc_ckpt or (ns.model_dir and ns.model_type == "VideoCrafter"):
+        raise SystemExit("--model-dir/--vc-ckpt: the VideoCrafter loaders are not ported yet "
+                         "(the VideoCrafter slice); --model-dir loads ModelScope only, and "
+                         "without either the UNet starts from seeded random weights")
 
     import torch
 
@@ -103,11 +107,16 @@ def main(argv=None) -> int:
         cfg = VideoCrafterUNetConfig().tiny() if ns.tiny else VideoCrafterUNetConfig()
         pipe = VideoCrafterPipeline.random_init(cfg, policy, seed=ns.seed, device=device)
         unet_cfg, text_model = pipe.cfg, pipe.clip
+        vocab = getattr(pipe.tokenizer, "source_path", None)
         encode_caption = lambda c: pipe.encode_text([c])
     else:
-        cfg = ModelScopeUNetConfig().tiny() if ns.tiny else ModelScopeUNetConfig()
-        pipe = ModelScopePipeline.random_init(cfg, policy, seed=ns.seed, device=device)
+        if ns.model_dir:
+            pipe = ModelScopePipeline.from_model_dir(ns.model_dir, policy, device=device)
+        else:
+            cfg = ModelScopeUNetConfig().tiny() if ns.tiny else ModelScopeUNetConfig()
+            pipe = ModelScopePipeline.random_init(cfg, policy, seed=ns.seed, device=device)
         unet_cfg, text_model = pipe.unet_cfg, pipe.text_encoder.model
+        vocab = getattr(pipe.text_encoder.tokenizer, "source_path", None)
         encode_caption = lambda c: pipe.text_encoder.encode_line(c)[None]
 
     opt = make_optimizer(ns.lr, ns.weight_decay)
@@ -182,7 +191,8 @@ def main(argv=None) -> int:
                     else state.params,
                     vae=pipe.vae, clip=text_model, unet_cfg=unet_cfg, vae_cfg=pipe.vae_cfg,
                     clip_cfg=pipe.clip_cfg,
-                    model_family="videocrafter" if is_vc else "modelscope")
+                    model_family="videocrafter" if is_vc else "modelscope",
+                    tokenizer_vocab=vocab)
             # the full state for --resume; LoRA runs use a distinct dir name,
             # since a train-state-only step_N/ would look like a checkpoint
             state_dir = (f"{ns.out}/lora_state_{step}" if ns.lora_rank > 0

@@ -2,6 +2,7 @@ from t2v_torch.core.config import (
     CLIPTextConfig,
     ModelScopeUNetConfig,
     T2VArgs,
+    T2VOutputArgs,
     VAEConfig,
     VideoCrafterUNetConfig,
     sanity_check_args,
@@ -9,6 +10,6 @@ from t2v_torch.core.config import (
 from t2v_torch.core.dtypes import Policy
 
 __all__ = [
-    "CLIPTextConfig", "ModelScopeUNetConfig", "Policy", "T2VArgs",
+    "CLIPTextConfig", "ModelScopeUNetConfig", "Policy", "T2VArgs", "T2VOutputArgs",
     "VAEConfig", "VideoCrafterUNetConfig", "sanity_check_args",
 ]

@@ -12,7 +12,10 @@ thing to both packages.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
+from typing import Any
 
 
 @dataclass(frozen=True)
@@ -40,6 +43,36 @@ class ModelScopeUNetConfig:
     @property
     def embed_dim(self) -> int:
         return self.dim * 4
+
+    @classmethod
+    def from_configuration_json(cls, model_dir: str) -> "ModelScopeUNetConfig":
+        """Parse a ModelScope ``configuration.json``.
+
+        The reference stores ``temporal_attention`` as the *string* "True";
+        we preserve that quirk when parsing.
+        """
+        with open(os.path.join(model_dir, "configuration.json")) as f:
+            config_dict = json.load(f)
+        cfg = config_dict["model"]["model_cfg"]
+        ta = cfg.get("temporal_attention", True)
+        if isinstance(ta, str):
+            ta = ta == "True"
+        return cls(
+            in_dim=cfg["unet_in_dim"],
+            dim=cfg["unet_dim"],
+            y_dim=cfg["unet_y_dim"],
+            context_dim=cfg["unet_context_dim"],
+            out_dim=cfg["unet_out_dim"],
+            dim_mult=tuple(cfg["unet_dim_mult"]),
+            num_heads=cfg["unet_num_heads"],
+            head_dim=cfg["unet_head_dim"],
+            num_res_blocks=cfg["unet_res_blocks"],
+            attn_scales=tuple(cfg["unet_attn_scales"]),
+            dropout=cfg["unet_dropout"],
+            parameterization=cfg.get("mean_type", "eps"),
+            temporal_attention=ta,
+            num_timesteps=cfg.get("num_timesteps", 1000),
+        )
 
     def tiny(self) -> "ModelScopeUNetConfig":
         """A CPU-testable miniature with the same topology."""
@@ -179,6 +212,55 @@ class T2VArgs:
     enable_emphasis: bool = True
     model_type: str = "ModelScope"
     model: str | None = "<modelscope>"
+
+    def replace(self, **kw: Any) -> "T2VArgs":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass
+class T2VOutputArgs:
+    """Video output options, with the reference's defaults."""
+
+    skip_video_creation: bool = False
+    fps: int = 15
+    make_gif: bool = False  # write an animated GIF alongside the mp4
+    delete_imgs: bool = False  # delete PNG frames after a successful stitch
+    # output path templates; None = the default per-run directory layout.
+    # image_path may carry a %-style frame index.
+    image_path: str | None = None
+    mp4_path: str | None = None
+    ffmpeg_location: str | None = None  # auto-discovered when None
+    ffmpeg_crf: int = 17
+    ffmpeg_preset: str = "slow"
+    add_soundtrack: str = "None"  # "None" | "File" | "Init Video"
+    soundtrack_path: str = ""
+    # schema-only, as in the reference: no code path reads them
+    render_steps: bool = False
+    path_name_modifier: str = "x0_pred"  # "x0_pred" | "x"
+    # upscaling / frame interpolation (media/postprocess.py)
+    r_upscale_video: bool = False
+    r_upscale_factor: str = "x2"  # "x2" | "x3" | "x4"
+    r_upscale_model: str = "realesr-animevideov3"
+    r_upscale_keep_imgs: bool = True
+    frame_interpolation_engine: str = "None"  # "None" | "RIFE v4.6" | "FILM"
+    frame_interpolation_x_amount: int = 2
+    frame_interpolation_slow_mo_enabled: bool = False
+    frame_interpolation_slow_mo_amount: int = 2
+    frame_interpolation_keep_imgs: bool = False
+
+    def replace(self, **kw: Any) -> "T2VOutputArgs":
+        return dataclasses.replace(self, **kw)
+
+
+def config_from_dict(cls, d: dict) -> Any:
+    """Rebuild a config dataclass from its JSON dict (lists -> tuples,
+    unknown keys ignored so old checkpoints survive config growth)."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name in d:
+            v = d[f.name]
+            kw[f.name] = tuple(v) if isinstance(v, list) else v
+    return cls(**kw)
 
 
 def sanity_check_args(args: T2VArgs) -> None:

@@ -1,6 +1,13 @@
-"""JAX parameter trees -> the port's state dicts.
+"""Checkpoints and JAX parameter trees -> the port's modules.
 
-The inverse of the JAX package's converters (``io/convert.py::convert_unet``,
+The port's modules carry the reference torch state-dict names, so a
+published checkpoint (``text2video_pytorch_model.pth``,
+``VQGAN_autoencoder.pth``, ``open_clip_pytorch_model.bin``) loads with
+``load_torch_checkpoint`` and ``load_state``, with no layout conversion; the
+VAE file's ``state_dict`` / ``first_stage_model.`` wrapping is undone by
+``strip_first_stage_prefix``.
+
+The rest of the module is the inverse of the JAX package's converters (``io/convert.py::convert_unet``,
 ``convert_vae``, ``io/convert_vc.py::convert_vc_unet`` and
 ``text/clip.py::convert_open_clip_text`` / ``convert_hf_clip_text``): each takes
 the JAX package's parameter tree as numpy arrays (with or without the
@@ -308,6 +315,49 @@ def lora_to_jax(lora: Mapping[str, Mapping[str, Any]]) -> dict:
         return v.detach().float().cpu().numpy() if torch.is_tensor(v) else np.float32(v)
 
     return {name: {k: leaf(v) for k, v in ab.items()} for name, ab in lora.items()}
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """A torch zip checkpoint (.pth / .bin / .ckpt) as a dict of CPU
+    tensors, memory-mapped (nothing is read until a tensor is used) and
+    through torch's weights-only unpickler, which refuses any global but
+    containers, tensors and dtypes. Tensors keep their stored dtype."""
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+
+def strip_first_stage_prefix(sd: Mapping) -> dict:
+    """``VQGAN_autoencoder.pth`` wraps everything under a top-level
+    'state_dict' key and carries 'first_stage_model.' prefixes; the
+    reference keeps only the prefixed keys' suffixes and discards the
+    ``loss.*`` keys."""
+    if "state_dict" in sd and isinstance(sd["state_dict"], dict):
+        sd = sd["state_dict"]
+    out = {}
+    for k, v in sd.items():
+        if "first_stage_model" in k:
+            k = k.split("first_stage_model.")[-1]
+        if k.startswith("loss."):
+            continue
+        out[k] = v
+    return out
+
+
+@torch.no_grad()
+def load_state(module: torch.nn.Module, sd: Mapping[str, torch.Tensor], *,
+               dtype: torch.dtype, device: torch.device | str) -> torch.nn.Module:
+    """Load the keys of ``sd`` that ``module`` owns, each cast to ``dtype``
+    on ``device`` one tensor at a time, in place of the module's own tensors
+    (so the module may be built on the meta device). The copies own their
+    memory: nothing stays mapped to the file. Every key the module
+    owns must be present; other keys (a text tower's visual half, a VAE's
+    loss network) are ignored."""
+    own = module.state_dict()
+    missing = sorted(set(own) - set(sd))
+    if missing:
+        raise KeyError(f"state dict lacks {len(missing)} keys, e.g. {missing[:3]}")
+    module.load_state_dict({k: sd[k].to(device=device, dtype=dtype, copy=True)
+                           for k in own}, assign=True)
+    return module
 
 
 def load_into(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> torch.nn.Module:

@@ -4,7 +4,8 @@ beside a ``train_state.json`` side file (format version, step, and the run's
 ``mode``: LoRA rank, EMA on or off), so that an incompatible resume fails
 with a clear message. The port's counterpart of the JAX package's
 ``io/orbax_io.py`` train-state functions; weights are stored as safetensors.
-``save_weights`` writes the module weights a generation run would load.
+``save_weights`` writes the module weights a generation run loads
+(``ModelScopePipeline.from_native``), ``load_weights`` reads them back.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 
 import torch
 
@@ -109,22 +111,51 @@ def latest_train_state(root: str) -> str | None:
     return best
 
 
+WEIGHTS_META = "t2v_torch.json"
+_COMPONENTS = ("unet", "vae", "clip")
+
+
 def save_weights(out_dir: str, *, unet_params, vae, clip, unet_cfg, vae_cfg, clip_cfg,
-                 model_family: str) -> str:
+                 model_family: str, tokenizer_vocab: str | None = None) -> str:
     """The weights of a trained model under their reference state-dict
     names: ``unet.safetensors`` (the tree it is given, e.g. the EMA shadow),
     ``vae.safetensors``, ``clip.safetensors`` and a ``t2v_torch.json`` with
-    the three configs and the model family."""
+    the three configs and the model family. ``tokenizer_vocab`` (the BPE
+    file the text tower's tokenizer was read from) is copied beside them
+    under the published vocab name, so the directory loads on its own."""
     out_dir = os.path.abspath(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     save_torch(os.path.join(out_dir, "unet.safetensors"), dict(tree_items(unet_params)))
     save_torch(os.path.join(out_dir, "vae.safetensors"), vae.state_dict())
     save_torch(os.path.join(out_dir, "clip.safetensors"), clip.state_dict())
+    if tokenizer_vocab and os.path.exists(tokenizer_vocab):
+        # under the name the loaders look for, whatever the source's name
+        name = "bpe_simple_vocab_16e6.txt" + (".gz" if tokenizer_vocab.endswith(".gz") else "")
+        target = os.path.join(out_dir, name)
+        if os.path.abspath(tokenizer_vocab) != target:  # saving over its own dir
+            shutil.copy(tokenizer_vocab, target)
     meta = {
         "format_version": FORMAT_VERSION, "model_family": model_family,
         "unet_cfg": dataclasses.asdict(unet_cfg), "vae_cfg": dataclasses.asdict(vae_cfg),
         "clip_cfg": dataclasses.asdict(clip_cfg),
     }
-    with open(os.path.join(out_dir, "t2v_torch.json"), "w") as f:
+    with open(os.path.join(out_dir, WEIGHTS_META), "w") as f:
         json.dump(meta, f)
     return out_dir
+
+
+def is_native_checkpoint(model_dir: str) -> bool:
+    """True for a directory that ``save_weights`` wrote."""
+    return os.path.exists(os.path.join(model_dir, WEIGHTS_META))
+
+
+def load_weights(model_dir: str, only: tuple[str, ...] = _COMPONENTS) -> tuple[dict, dict]:
+    """(meta, {component: state dict of CPU tensors}) of a ``save_weights``
+    directory, for the components named in ``only``."""
+    with open(os.path.join(model_dir, WEIGHTS_META)) as f:
+        meta = json.load(f)
+    if meta["format_version"] > FORMAT_VERSION:
+        raise ValueError(f"weights format {meta['format_version']} is newer than this build "
+                         f"({FORMAT_VERSION})")
+    sds = {name: load_torch(os.path.join(model_dir, f"{name}.safetensors"))[0] for name in only}
+    return meta, sds

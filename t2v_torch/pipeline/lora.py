@@ -26,7 +26,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from t2v_torch.core.config import ModelScopeUNetConfig
+from t2v_torch.core.config import CLIPTextConfig, ModelScopeUNetConfig
 from t2v_torch.io.safetensors_io import save_safetensors
 from t2v_torch.models.modelscope_unet import BlockDesc, build_topology
 
@@ -80,6 +80,21 @@ def unet_module_index(cfg: ModelScopeUNetConfig) -> dict[str, tuple[str, str]]:
     for entry in (*topo.encoder, topo.middle, *topo.decoder):
         for d in entry:
             add_block(d)
+    return idx
+
+
+def text_module_index(cfg: CLIPTextConfig) -> dict[str, tuple[str, str]]:
+    """Stable-lora module index of the OpenCLIP text tower. The reference
+    merges CLIP LoRAs into its tower's ``transformer`` sub-module, so file
+    keys are named relative to it (``resblocks.N.attn.out_proj``) and reach
+    only its ``nn.Linear`` leaves (the fused attention ``in_proj`` is no
+    Linear module); each maps to its weight's name in the tower's state
+    dict."""
+    idx: dict[str, tuple[str, str]] = {}
+    n_layers = cfg.layers - (1 if cfg.layer == "penultimate" else 0)
+    for i in range(n_layers):
+        for leaf in ("attn.out_proj", "mlp.c_fc", "mlp.c_proj"):
+            idx[f"resblocks.{i}.{leaf}"] = (f"transformer.resblocks.{i}.{leaf}.weight", "linear")
     return idx
 
 
@@ -225,9 +240,9 @@ def merge_stable_lora(
             b = b.squeeze(-1)
         delta = _delta_to_weight((b @ a).to(w.device), kind, w.shape)
         new[pname] = (w.float() + sign * alpha * delta).to(w.dtype)
-        bias_name = f"{name}.bias"
-        if merge_bias and bias_name in lora_sd and bias_name in new:
+        bias_name = pname.removesuffix("weight") + "bias"
+        if merge_bias and f"{name}.bias" in lora_sd and bias_name in new:
             bias = new[bias_name]
-            db = torch.from_numpy(np.array(lora_sd[bias_name], np.float32)).to(bias.device)
+            db = torch.from_numpy(np.array(lora_sd[f"{name}.bias"], np.float32)).to(bias.device)
             new[bias_name] = (bias.float() + sign * alpha * db).to(bias.dtype)
     return new, skipped

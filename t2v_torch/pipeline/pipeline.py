@@ -13,12 +13,21 @@ CPU. Seed policy: the request's seed, ``-1`` resolved to a fresh one,
 
 ``random_init`` builds seeded random weights (no checkpoint needed) with
 the JAX package's zero-initialised leaves; ``from_jax`` loads the JAX
-package's parameter trees through ``io/convert.py``.
+package's parameter trees through ``io/convert.py``; ``from_model_dir``
+loads a published ModelScope directory (``configuration.json``, the three
+torch checkpoints and the BPE vocab) or a directory the trainer saved
+(``from_native``); ``load_pipeline`` caches one loaded pipeline and
+switches to another directory on demand. ``release_aux`` / ``reload_aux``
+drop and re-read the VAE and text tower between requests ("Main Model
+Only"); ``apply_stable_lora`` merges a stable-lora file into the UNet and
+the text tower.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable
@@ -33,13 +42,14 @@ from t2v_torch.core.config import (
     ModelScopeUNetConfig,
     T2VArgs,
     VAEConfig,
+    config_from_dict,
     sanity_check_args,
 )
 from t2v_torch.core.dtypes import Policy
 from t2v_torch.diffusion import deepcache as deepcache_mod
 from t2v_torch.diffusion.sampling import sample_loop
 from t2v_torch.diffusion.schedules import DiffusionSchedule
-from t2v_torch.io import convert
+from t2v_torch.io import convert, train_state
 from t2v_torch.models.modelscope_unet import UNetSD
 from t2v_torch.models.vae import AutoencoderKL, decode_uint8, encode_latents
 from t2v_torch.pipeline.keyframes import KeyFrameSeries
@@ -152,6 +162,26 @@ class InferResult:
     timings: dict = field(default_factory=dict)  # seconds: text, sample, decode
 
 
+def _checkpoint_names(model_dir: str) -> dict[str, str]:
+    """The checkpoint file names ``configuration.json`` gives (or the
+    published defaults)."""
+    with open(os.path.join(model_dir, "configuration.json")) as f:
+        model_args = json.load(f)["model"].get("model_args", {})
+    return {
+        "unet": model_args.get("ckpt_unet", "text2video_pytorch_model.pth"),
+        "vae": model_args.get("ckpt_autoencoder", "VQGAN_autoencoder.pth"),
+        "clip": model_args.get("ckpt_clip", "open_clip_pytorch_model.bin"),
+    }
+
+
+def _load_module(build: Callable[[], nn.Module], sd, policy: Policy, device) -> nn.Module:
+    """``build()`` on the meta device (no memory, no init), then the state
+    dict's tensors cast to the policy's dtype on ``device``."""
+    with torch.device("meta"):
+        module = build()
+    return convert.load_state(module, sd, dtype=policy.param_dtype, device=device).eval()
+
+
 @dataclass
 class ModelScopePipeline:
     unet_cfg: ModelScopeUNetConfig
@@ -159,23 +189,28 @@ class ModelScopePipeline:
     clip_cfg: CLIPTextConfig
     policy: Policy
     unet: UNetSD
-    vae: AutoencoderKL
-    text_encoder: TextEncoder
+    vae: AutoencoderKL | None  # None after release_aux
+    text_encoder: TextEncoder | None  # None after release_aux
     schedule: DiffusionSchedule
     device: torch.device
+    model_dir: str | None = None  # where reload_aux re-reads the VAE and text tower
 
     @staticmethod
-    def configs(unet_cfg: ModelScopeUNetConfig | None, tokenizer: CLIPTokenizer):
+    def configs(unet_cfg: ModelScopeUNetConfig | None, tokenizer: CLIPTokenizer,
+                vae_cfg: VAEConfig | None = None, clip_cfg: CLIPTextConfig | None = None):
         """(unet, vae, clip) configs of a random-weight pipeline, chosen as
         the JAX package's ``random_init`` chooses them: the tiny VAE and
-        text tower beside a tiny UNet, the full ones beside a full UNet."""
+        text tower beside a tiny UNet, the full ones beside a full UNet.
+        A ``vae_cfg`` or ``clip_cfg`` given is taken as it is."""
         unet_cfg = unet_cfg or ModelScopeUNetConfig().tiny()
         small = unet_cfg.dim < 128
-        vae_cfg = VAEConfig().tiny() if small else VAEConfig()
-        clip_cfg = CLIPTextConfig.vit_h_14().tiny() if small else CLIPTextConfig.vit_h_14()
-        clip_cfg = dataclasses.replace(
-            clip_cfg, width=unet_cfg.context_dim, vocab_size=tokenizer.vocab_size
-        )
+        if vae_cfg is None:
+            vae_cfg = VAEConfig().tiny() if small else VAEConfig()
+        if clip_cfg is None:
+            clip_cfg = CLIPTextConfig.vit_h_14().tiny() if small else CLIPTextConfig.vit_h_14()
+            clip_cfg = dataclasses.replace(
+                clip_cfg, width=unet_cfg.context_dim, vocab_size=tokenizer.vocab_size
+            )
         return unet_cfg, vae_cfg, clip_cfg
 
     @classmethod
@@ -199,11 +234,14 @@ class ModelScopePipeline:
         policy: Policy = Policy(),
         seed: int = 0,
         device: torch.device | str = "cuda",
+        *,
+        vae_cfg: VAEConfig | None = None,
+        clip_cfg: CLIPTextConfig | None = None,
     ) -> "ModelScopePipeline":
         """Random-weight pipeline (tests and smoke runs; no checkpoint on
         disk needed). The tokenizer is ``CLIPTokenizer.for_tests()``."""
         tokenizer = CLIPTokenizer.for_tests()
-        unet_cfg, vae_cfg, clip_cfg = cls.configs(unet_cfg, tokenizer)
+        unet_cfg, vae_cfg, clip_cfg = cls.configs(unet_cfg, tokenizer, vae_cfg, clip_cfg)
 
         def fill(unet, vae, clip):
             init_weights(unet, seed, _ZERO_INIT)
@@ -215,12 +253,14 @@ class ModelScopePipeline:
     @classmethod
     def from_jax(
         cls, unet_params, vae_params, clip_params, unet_cfg: ModelScopeUNetConfig,
-        policy: Policy = Policy(), device: torch.device | str = "cuda",
+        policy: Policy = Policy(), device: torch.device | str = "cuda", *,
+        vae_cfg: VAEConfig | None = None, clip_cfg: CLIPTextConfig | None = None,
     ) -> "ModelScopePipeline":
         """Pipeline on the JAX package's parameter trees (numpy leaves) of a
-        ``random_init`` pipeline with this UNet config."""
+        ``random_init`` pipeline with this UNet config (or of one with the
+        VAE and text-tower configs given)."""
         tokenizer = CLIPTokenizer.for_tests()
-        unet_cfg, vae_cfg, clip_cfg = cls.configs(unet_cfg, tokenizer)
+        unet_cfg, vae_cfg, clip_cfg = cls.configs(unet_cfg, tokenizer, vae_cfg, clip_cfg)
 
         def fill(unet, vae, clip):
             convert.load_into(unet, convert.from_jax_unet(unet_params, unet_cfg))
@@ -228,6 +268,123 @@ class ModelScopePipeline:
             convert.load_into(clip, convert.from_jax_clip(clip_params, clip_cfg))
 
         return cls._build(unet_cfg, vae_cfg, clip_cfg, tokenizer, policy, device, fill)
+
+    @classmethod
+    def from_model_dir(
+        cls,
+        model_dir: str,
+        policy: Policy = Policy.bf16(),
+        *,
+        vae_cfg: VAEConfig | None = None,
+        clip_cfg: CLIPTextConfig | None = None,
+        device: torch.device | str = "cuda",
+    ) -> "ModelScopePipeline":
+        """Load a published ModelScope directory: ``configuration.json``
+        (the UNet config and the ``ckpt_*`` file names),
+        ``text2video_pytorch_model.pth``, ``VQGAN_autoencoder.pth``,
+        ``open_clip_pytorch_model.bin`` and ``bpe_simple_vocab_16e6.txt.gz``
+        (in the directory or its parent); or a directory the trainer saved,
+        detected by its ``t2v_torch.json``. ``vae_cfg`` / ``clip_cfg``
+        default to the published SD VAE and ViT-H-14 text tower; overrides
+        serve reduced-scale checkpoints."""
+        if train_state.is_native_checkpoint(model_dir):
+            return cls.from_native(model_dir, policy, device=device)
+        dev = resolve_device(device)
+        unet_cfg = ModelScopeUNetConfig.from_configuration_json(model_dir)
+        path = os.path.join(model_dir, _checkpoint_names(model_dir)["unet"])
+        unet = _load_module(lambda: UNetSD(unet_cfg), convert.load_torch_checkpoint(path),
+                            policy, dev)
+        pipe = cls(
+            unet_cfg=unet_cfg, vae_cfg=vae_cfg or VAEConfig(),
+            clip_cfg=clip_cfg or CLIPTextConfig.vit_h_14(), policy=policy, unet=unet,
+            vae=None, text_encoder=None,
+            schedule=DiffusionSchedule.linear_sd(unet_cfg.num_timesteps), device=dev,
+            model_dir=model_dir,
+        )
+        pipe.reload_aux()
+        return pipe
+
+    @classmethod
+    def from_native(
+        cls, model_dir: str, policy: Policy = Policy.bf16(), *,
+        device: torch.device | str = "cuda",
+    ) -> "ModelScopePipeline":
+        """Load what ``io/train_state.save_weights`` wrote: the three
+        configs from ``t2v_torch.json``, the weights from
+        ``{unet,vae,clip}.safetensors``, the vocab shipped beside them."""
+        dev = resolve_device(device)
+        meta, sds = train_state.load_weights(model_dir, only=("unet",))
+        if meta.get("model_family", "modelscope") != "modelscope":
+            raise ValueError(f"{model_dir} holds a {meta['model_family']} checkpoint, which "
+                             "ModelScopePipeline does not load")
+        unet_cfg = config_from_dict(ModelScopeUNetConfig, meta["unet_cfg"])
+        unet = _load_module(lambda: UNetSD(unet_cfg), sds["unet"], policy, dev)
+        pipe = cls(
+            unet_cfg=unet_cfg, vae_cfg=config_from_dict(VAEConfig, meta["vae_cfg"]),
+            clip_cfg=config_from_dict(CLIPTextConfig, meta["clip_cfg"]), policy=policy,
+            unet=unet, vae=None, text_encoder=None,
+            schedule=DiffusionSchedule.linear_sd(unet_cfg.num_timesteps), device=dev,
+            model_dir=model_dir,
+        )
+        pipe.reload_aux()
+        return pipe
+
+    # ------------------------------------------------------------------
+    # 'Main Model Only' retention: keep the UNet, drop the VAE and the text
+    # tower between requests and read them again from the model dir
+
+    def release_aux(self) -> None:
+        """Drop the VAE and the text tower; on the card the caching
+        allocator returns their memory to the device. ``reload_aux``
+        restores them."""
+        self.vae = None
+        self.text_encoder = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def reload_aux(self) -> None:
+        """Read the VAE, the text tower and the tokenizer from the model
+        dir; a no-op while both are resident."""
+        if self.vae is not None and self.text_encoder is not None:
+            return
+        if self.model_dir is None:
+            raise ValueError(
+                "cannot reload VAE/CLIP: pipeline has no model_dir "
+                "(random-init pipelines cannot use 'Main Model Only')"
+            )
+        if train_state.is_native_checkpoint(self.model_dir):
+            _, sds = train_state.load_weights(self.model_dir, only=("vae", "clip"))
+            sd_vae, sd_clip = sds["vae"], sds["clip"]
+        else:
+            names = _checkpoint_names(self.model_dir)
+            sd_vae = convert.strip_first_stage_prefix(
+                convert.load_torch_checkpoint(os.path.join(self.model_dir, names["vae"])))
+            sd_clip = convert.load_torch_checkpoint(os.path.join(self.model_dir, names["clip"]))
+        self.vae = _load_module(lambda: AutoencoderKL(self.vae_cfg), sd_vae, self.policy,
+                                self.device)
+        clip = _load_module(lambda: CLIPTextTransformer(self.clip_cfg), sd_clip, self.policy,
+                            self.device)
+        tokenizer = CLIPTokenizer.find_and_load(self.model_dir,
+                                                os.path.dirname(os.path.abspath(self.model_dir)))
+        self.text_encoder = TextEncoder(clip, tokenizer)
+
+    # ------------------------------------------------------------------
+
+    def apply_stable_lora(self, lora_sd, alpha: float = 1.0, *,
+                          undo: bool = False) -> dict[str, list[str]]:
+        """Merge a stable-lora state dict (numpy, as read from its file)
+        into the UNet and the text tower in place, as the reference merges
+        into both; ``undo=True`` reverses a merge of the same file and
+        alpha. Returns {"unet": skipped, "clip": skipped} module names."""
+        from t2v_torch.pipeline.lora import text_module_index, unet_module_index
+
+        skipped = {"unet": _merge_lora(self.unet, lora_sd, alpha,
+                                       unet_module_index(self.unet_cfg), undo), "clip": []}
+        if self.text_encoder is not None:
+            skipped["clip"] = _merge_lora(self.text_encoder.model, lora_sd, alpha,
+                                          text_module_index(self.clip_cfg), undo)
+            self.text_encoder.invalidate_cache()
+        return skipped
 
     # ------------------------------------------------------------------
 
@@ -307,6 +464,9 @@ class ModelScopePipeline:
         shape = (1, args.frames, args.height // ss, args.width // ss, 4)
         dev = self.device
 
+        if self.text_encoder is None or self.vae is None:
+            raise ValueError("the VAE and text tower were released (release_aux); "
+                             "call reload_aux() before infer()")
         t0 = time.perf_counter()
         self.text_encoder.comma_backtrack = args.comma_padding_backtrack
         self.text_encoder.enable_emphasis = args.enable_emphasis
@@ -360,3 +520,38 @@ class ModelScopePipeline:
             f"Size: {args.width}x{args.height}, Frames: {args.frames}, "
             f"Model: {args.model or 'ModelScope'}"
         )
+
+
+@torch.no_grad()
+def _merge_lora(module: nn.Module, lora_sd, alpha: float, index, undo: bool) -> list[str]:
+    """``merge_stable_lora`` into ``module``'s own tensors; returns the
+    skipped module names."""
+    from t2v_torch.pipeline.lora import merge_stable_lora
+
+    params = module.state_dict()
+    merged, skipped = merge_stable_lora(params, lora_sd, alpha, index, undo=undo)
+    for name, t in merged.items():
+        if t is not params[name]:
+            params[name].copy_(t)
+    return skipped
+
+
+_PIPELINE_CACHE: dict[tuple, ModelScopePipeline] = {}
+
+
+def load_pipeline(model_dir: str, policy: Policy = Policy.bf16(), keep_in_vram: bool = True,
+                  device: torch.device | str = "cuda") -> ModelScopePipeline:
+    """Cached loader with model hot-switch semantics: a directory other
+    than the cached one drops the cached pipeline before loading the new
+    one, so two never hold the card at once. ``keep_in_vram=False`` skips
+    caching: the pipeline lives only for the caller's run."""
+    key = (os.path.abspath(model_dir), policy.param_dtype, str(torch.device(device)))
+    if key in _PIPELINE_CACHE:
+        return _PIPELINE_CACHE[key]
+    _PIPELINE_CACHE.clear()
+    if torch.device(device).type == "cuda" and torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    pipe = ModelScopePipeline.from_model_dir(model_dir, policy, device=device)
+    if keep_in_vram:
+        _PIPELINE_CACHE[key] = pipe
+    return pipe

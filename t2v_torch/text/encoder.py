@@ -50,6 +50,10 @@ class TextEncoder:
         self.enable_emphasis = True
         self._cache: dict[tuple, torch.Tensor] = {}
 
+    def invalidate_cache(self) -> None:
+        """Drop cached line encodings (after the tower's weights change)."""
+        self._cache.clear()
+
     @property
     def device(self) -> torch.device:
         return self.model.positional_embedding.device

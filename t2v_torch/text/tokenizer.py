@@ -17,21 +17,23 @@ implementation of the same byte-level BPE scheme:
     punctuation runs);
   * greedy lowest-rank merge loop with the ``</w>`` end-of-word marker.
 
-The real merge table is the standard ``bpe_simple_vocab_16e6.txt.gz``
-(special ids BOS 49406, EOS 49407, vocab 49408), which the repo does not
-hold; until it does, the port runs on ``CLIPTokenizer.for_tests``, a
-deterministic toy vocab, as the JAX package's ``random_init`` does.
+The merge table loads from the standard ``bpe_simple_vocab_16e6.txt.gz``
+(special ids BOS 49406, EOS 49407, vocab 49408; place it in the model dir
+or pass an explicit path). ``CLIPTokenizer.for_tests`` builds a
+deterministic toy vocab for random-weight pipelines, as the JAX package's
+``random_init`` does.
 
-The port's own copy of the JAX package's ``text/tokenizer.py``, without
-the vocab-file loaders and ``decode``, which no ported path calls yet. The
-split regex there needs the third-party ``regex`` module for ``\\p{L}`` and
+The port's own copy of the JAX package's ``text/tokenizer.py``. The split
+regex there needs the third-party ``regex`` module for ``\\p{L}`` and
 ``\\p{N}``; here ``split_words`` scans the same alternation by Unicode
 category with the standard library alone.
 """
 
 from __future__ import annotations
 
+import gzip
 import html
+import os
 import re
 import unicodedata
 from functools import lru_cache
@@ -159,6 +161,7 @@ class CLIPTokenizer:
             vocab.append("".join(merge))
         vocab.extend(["<|startoftext|>", "<|endoftext|>"])
         self.encoder = {tok: i for i, tok in enumerate(vocab)}
+        self.decoder = {i: tok for tok, i in self.encoder.items()}
         self.bpe_ranks = {m: i for i, m in enumerate(merges)}
         self.bos_id = self.encoder["<|startoftext|>"]
         self.eos_id = self.encoder["<|endoftext|>"]
@@ -169,6 +172,33 @@ class CLIPTokenizer:
         }
 
     # ---- constructors -----------------------------------------------------
+
+    @classmethod
+    def from_vocab_file(cls, path: str) -> "CLIPTokenizer":
+        """Load the standard gzip merge list (49152-256-2+1 lines used)."""
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rt", encoding="utf-8") as f:
+            lines = f.read().split("\n")
+        lines = lines[1 : 49152 - 256 - 2 + 1]
+        # tolerate short/truncated files: only well-formed "a b" pairs count
+        merges = [m for m in (tuple(l.split()) for l in lines) if len(m) == 2]
+        tok = cls(merges)
+        # remembered so savers (e.g. native checkpoints) can ship the vocab
+        tok.source_path = os.path.abspath(path)
+        return tok
+
+    @classmethod
+    def find_and_load(cls, *search_dirs: str) -> "CLIPTokenizer":
+        names = ("bpe_simple_vocab_16e6.txt.gz", "bpe_simple_vocab_16e6.txt")
+        for d in search_dirs:
+            for n in names:
+                p = os.path.join(d, n)
+                if os.path.exists(p):
+                    return cls.from_vocab_file(p)
+        raise FileNotFoundError(
+            f"CLIP BPE vocab not found in {search_dirs}; place "
+            "bpe_simple_vocab_16e6.txt.gz in the model directory"
+        )
 
     @classmethod
     def for_tests(cls) -> "CLIPTokenizer":
@@ -236,3 +266,14 @@ class CLIPTokenizer:
             for sub in self._bpe(btok).split(" "):
                 ids.append(self.encoder[sub])
         return ids
+
+    def decode(self, ids: list[int]) -> str:
+        text = "".join(self.decoder[i] for i in ids)
+        byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        raw = bytearray()
+        for ch in text.replace("</w>", " "):
+            if ch in byte_decoder:
+                raw.append(byte_decoder[ch])
+            else:
+                raw.extend(ch.encode("utf-8"))
+        return raw.decode("utf-8", errors="replace").strip()

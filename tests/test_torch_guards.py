@@ -313,6 +313,33 @@ def test_webvid_copy_matches_jax_and_imports_without_cv2():
     assert out.returncode == 0, out.stderr
 
 
+def test_media_copies_match_jax_and_every_module_imports_without_cv2():
+    """The port's media modules are the JAX package's but for where they
+    import ``cv2`` (at use); every port module, the CLIs' parsers and
+    ``chip_smoke.py`` import on a host without OpenCV."""
+    from t2v.media import error_video as jerr
+    from t2v.media import postprocess as jpost
+    from t2v.media import video as jvideo
+    from t2v_torch.media import error_video as terr
+    from t2v_torch.media import postprocess as tpost
+    from t2v_torch.media import video as tvideo
+
+    for mine, theirs in ((tvideo, jvideo), (terr, jerr), (tpost, jpost)):
+        a, b = _functions_without_cv2_imports(mine), _functions_without_cv2_imports(theirs)
+        assert a.keys() == b.keys() and [k for k in a if a[k] != b[k]] == [], mine.__name__
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for p in (REPO / "t2v_torch").rglob("*.py")
+    )
+    code = ("import importlib, sys; sys.modules['cv2'] = None\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "import chip_smoke, t2v_torch.cli.generate as g, t2v_torch.cli.train as t\n"
+            "g.build_parser(); t.build_parser()\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_safetensors_reader_copy_matches_jax():
     from t2v.io import safetensors_io as jst
     from t2v_torch.io import safetensors_io as tst

@@ -396,9 +396,44 @@ def test_cli_trains_two_steps_on_the_cpu_and_resumes(tmp_path, capsys, extra):
     assert "nothing to do" in capsys.readouterr().out
 
 
+def test_cli_fine_tunes_a_model_dir_and_saves_a_loadable_one(tmp_path, capsys):
+    """One full fine-tune step from a model directory (a tiny one in the
+    trainer's own layout: a published-layout one implies the full VAE and
+    text tower); the saved directory (weights, configs, the vocab) loads
+    with ``from_model_dir``."""
+    pytest.importorskip("cv2")
+    from _torch_model_dir import VOCAB, source_pipeline
+    from t2v_torch.cli import train as cli
+    from t2v_torch.core.dtypes import Policy
+    from t2v_torch.pipeline.pipeline import ModelScopePipeline
+
+    _write_clip(tmp_path / "data")
+    src = source_pipeline()
+    model = train_state.save_weights(
+        str(tmp_path / "model"), unet_params=dict(src.unet.named_parameters()), vae=src.vae,
+        clip=src.text_encoder.model, unet_cfg=src.unet_cfg, vae_cfg=src.vae_cfg,
+        clip_cfg=src.clip_cfg, model_family="modelscope", tokenizer_vocab=str(VOCAB))
+    out = tmp_path / "out"
+    assert cli.main(["--data-dir", str(tmp_path / "data"), "--model-dir", str(model), "--device",
+                     "cpu", "--batch-size", "1", "--frames", "4", "--resolution", "32",
+                     "--steps", "1", "--log-every", "1", "--out", str(out)]) == 0
+    text = capsys.readouterr().out
+    assert "step 1 loss" in text and "nan" not in text
+    saved = out / "step_1"
+    assert (saved / "bpe_simple_vocab_16e6.txt.gz").read_bytes() == VOCAB.read_bytes()
+    pipe = ModelScopePipeline.from_model_dir(str(saved), Policy.fp32(), device="cpu")
+    assert (pipe.unet_cfg, pipe.vae_cfg, pipe.clip_cfg) == (src.unet_cfg, src.vae_cfg, src.clip_cfg)
+    trained, before = pipe.unet.state_dict(), src.unet.state_dict()
+    assert any(not torch.equal(trained[k], before[k]) for k in before)
+    for a, b in ((pipe.vae, src.vae), (pipe.text_encoder.model, src.text_encoder.model)):
+        assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
+                                                    b.state_dict().values()))
+
+
 @pytest.mark.parametrize("argv,match", [
     (["--sp", "2"], "--sp/--tp"), (["--tp", "2"], "--sp/--tp"),
-    (["--model-dir", "x"], "--model-dir/--vc-ckpt"), (["--vc-ckpt", "x"], "--model-dir/--vc-ckpt"),
+    (["--model-type", "VideoCrafter", "--model-dir", "x"], "--model-dir/--vc-ckpt"),
+    (["--vc-ckpt", "x"], "--model-dir/--vc-ckpt"),
     (["--model-type", "VideoCrafter", "--lora-rank", "2", "--tiny", "--device", "cpu"],
      "ModelScope only"),
     (["--tiny", "--device", "cpu", "--resume"], "no train state"),
