@@ -168,12 +168,15 @@ TEMPORAL_MHA_CASES += [(2, T, 9216, 5, 64), *TEMPORAL_MHA_RAGGED]
 # Flash attention forward (B, N, S, D, scale): ModelScope's 32x32 spatial
 # self-attention at 24 frames (2 x 24 x 5 heads) and at 125 frames,
 # VideoCrafter's at 40-wide heads (2 x 16 x 8), the VAE mid-block attention
-# (one head of 512), then ragged ones that reach the edges of the kernel's
-# tiles (128 query rows, 64 at D = 512; 128 or 64 keys): N and S not
-# multiples of a tile, S shorter than one key tile, a single query row,
-# D = 80 and 160, and N != S at D = 512
+# (one head of 512) at 256x256 and, on 12-frame chunks, on the tiled
+# decode's 64 x 64 tiles and untiled at ZeroScope's 72 x 128 latent, then
+# ragged ones that reach the edges of the kernel's tiles (128 query rows,
+# 64 at D = 512; 128 or 64 keys): N and S not multiples of a tile, S
+# shorter than one key tile, a single query row, D = 80 and 160, and
+# N != S at D = 512
 FLASH_TIMED = [(240, 1024, 1024, 64, 0.125), (1250, 1024, 1024, 64, 0.125),
-               (256, 1024, 1024, 40, 40 ** -0.5), (24, 1024, 1024, 512, 512 ** -0.5)]
+               (256, 1024, 1024, 40, 40 ** -0.5), (24, 1024, 1024, 512, 512 ** -0.5),
+               (12, 4096, 4096, 512, 512 ** -0.5), (12, 9216, 9216, 512, 512 ** -0.5)]
 FLASH_RAGGED = [(3, 333, 777, 64, 0.125), (3, 333, 777, 40, 40 ** -0.5), (2, 70, 600, 160, 0.1),
                 (2, 200, 50, 64, 0.125), (2, 130, 100, 40, 40 ** -0.5), (2, 1, 513, 64, 0.125),
                 (2, 300, 517, 80, 80 ** -0.5), (3, 129, 65, 160, 160 ** -0.5),
@@ -551,7 +554,7 @@ def check_flash(g) -> list[KernelRecord]:
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), 10)
         rec.timed((b, n, s, d), ms, plain_ms, lib_ms, *_attn_flops_bytes(b, n, s, d),
                   main=(b, d) == (240, 64), plan=plan,
-                  before_key="flash_attention_vae" if d == 512 else None)
+                  before_key="flash_attention_vae" if (b, d) == (24, 512) else None)
         dev = _kernel_device_ms(call, "flash_fwd_kernel")
         flops = _attn_flops_bytes(b, n, s, d)[0]
         print(f"  device flash_attention {str((b, n, s, d)):26s} "
@@ -1469,24 +1472,36 @@ def _write_model_dir(pipe, out: Path) -> int:
     return sum(f.stat().st_size for f in out.iterdir())
 
 
+class _Recorded(list):
+    """``infer`` results in call order; ``pipes`` holds the pipeline that
+    answered each."""
+
+    def __init__(self):
+        super().__init__()
+        self.pipes = []
+
+
 @contextlib.contextmanager
-def _recording_infer():
-    """While active, every ``ModelScopePipeline.infer`` result is appended
-    to the yielded list (the CLI and the API return no frames)."""
+def _recording_infer(cls=None):
+    """While active, every ``cls.infer`` result (``ModelScopePipeline`` by
+    default) is appended to the yielded list, and its pipeline to the
+    list's ``pipes`` (the CLI and the API return neither)."""
     from t2v_torch.pipeline.pipeline import ModelScopePipeline
 
-    results, infer = [], ModelScopePipeline.infer
+    cls = cls or ModelScopePipeline
+    results, infer = _Recorded(), cls.infer
 
     def recording(self, *args, **kwargs):
         res = infer(self, *args, **kwargs)
         results.append(res)
+        results.pipes.append(self)
         return res
 
-    ModelScopePipeline.infer = recording
+    cls.infer = recording
     try:
         yield results
     finally:
-        ModelScopePipeline.infer = infer
+        cls.infer = infer
 
 
 @contextlib.contextmanager
@@ -1671,7 +1686,7 @@ def drive_generate() -> dict:
         if counts != expected:
             _fail(f"generate: API launches {counts}, expected {expected}")
         if results[0].frames is None or pl._PIPELINE_CACHE.get(
-                (os.path.abspath(model_dir), torch.bfloat16, "cuda")) is not pipe:
+                ("modelscope", os.path.abspath(model_dir), torch.bfloat16, "cuda")) is not pipe:
             _fail("generate: the API request did not run on the cached pipeline")
         _same_frames("generate: the API request", results[0].frames, want)
         tm = results[0].timings
@@ -1703,6 +1718,517 @@ def drive_generate() -> dict:
                   f"{aux / 2**30:.3f} GiB)", flush=True)
         for i, f in enumerate(frames):
             _same_frames(f"generate: 'Main Model Only' request {i}", f, want)
+
+        # textual inversion and the tiled decode, on the same directory
+        pipe.reload_aux()
+        launches["generate_ti_cli"] = _ti_request(pipe, model_dir, root, files, expected)
+        launches.update({f"generate_{k}": v for k, v in _tiled_decode(pipe).items()})
+        del pipe
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        if saved_root is None:
+            os.environ.pop("T2V_MODELS_ROOT", None)
+        else:
+            os.environ["T2V_MODELS_ROOT"] = saved_root
+        run_mod._warm_pipe = None
+        pl._PIPELINE_CACHE.clear()
+        shutil.rmtree(root, ignore_errors=True)
+        _release()
+    return launches
+
+
+TI_NAME = "zxq"  # the textual-inversion file's name, as a prompt writes it
+TI_PROMPT = "a photo of zxq in the forest"
+TILED_LATENT = (24, 72, 128, 4)  # ZeroScope's 1024x576, 24 frames
+TILE, TILE_OVERLAP = 64, 16      # 4,096 mid-block tokens a tile: flash at D = 512
+TILED_FRAME_RMS = 1e-2           # decoded frames, kernel against plain, relative RMS
+
+
+def _hand_splice(tower, tokenizer, prompt: str, vec, device):
+    """The conditioning of a one-chunk ``prompt`` naming ``TI_NAME``, built
+    by hand: the name's ids replaced by ``len(vec)`` placeholder rows, BOS /
+    EOS / zero padding, the token embeddings with ``vec`` written one place
+    after the run (BOS comes first), the tower, the multiplier renorm with
+    multipliers 1."""
+    import torch
+
+    from t2v_torch.text.encoder import weight_renorm
+
+    ids, name = tokenizer.encode(prompt), tokenizer.encode(TI_NAME)
+    at = next(i for i in range(len(ids)) if ids[i : i + len(name)] == name)
+    ids = ids[:at] + [0] * len(vec) + ids[at + len(name):]
+    toks = [tokenizer.bos_id] + ids + [tokenizer.eos_id] + [0] * (75 - len(ids))
+    toks = torch.tensor([toks], device=device)
+    with torch.no_grad():
+        x = tower.token_embedding_weight[toks].clone()
+        x[0, at + 1 : at + 1 + len(vec)] = vec.to(device, x.dtype)
+        z = tower(toks, input_embeddings=x)
+        return weight_renorm(z, torch.ones(toks.shape, device=device))
+
+
+def _ti_request(pipe, model_dir: Path, root: Path, files: bool, expected: dict) -> dict:
+    """A CLI request whose prompt names an A1111 ``.pt`` embedding (two
+    seeded 1,024-wide rows) in ``--embeddings-dir``: its conditioning on the
+    card against a float32 hand splice on the CPU (no further than
+    SMALL_RATIO times the bf16 CPU splice's distance) and against the same
+    splice on the card (equal), launch counts, and frames that differ from
+    the same prompt without the file (``pipe``, which has none)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from t2v_torch.cli import generate
+    from t2v_torch.core.config import T2VArgs
+    from t2v_torch.pipeline import run as run_mod
+
+    g = torch.Generator().manual_seed(17)
+    vec = torch.randn((2, pipe.clip_cfg.width), generator=g) * 0.02
+    emb_dir = root / "embeddings"
+    emb_dir.mkdir()
+    torch.save({"string_to_token": {"*": 265}, "string_to_param": {"*": vec},
+                "name": TI_NAME, "step": 1000}, emb_dir / f"{TI_NAME}.pt")
+    argv = ["--model-dir", str(model_dir), "--embeddings-dir", str(emb_dir), "--prompt",
+            TI_PROMPT, "--seed", str(GEN_SEED), "--steps", str(STEPS), "--frames", str(T),
+            "--width", str(PX), "--height", str(PX), "--cfg-scale", str(CFG), "--outdir",
+            str(root / "cli_ti"), "--skip-video-creation"]
+    _reset_counters()
+    t0 = time.perf_counter()
+    with _no_plain_on_cuda(), _no_frame_files(not files), _recording_infer() as results:
+        generate.main(argv)
+    t_cli = time.perf_counter() - t0
+    counts = _read_counters()
+    if len(results) != 1 or counts != expected:
+        _fail(f"TI: the CLI answered {len(results)} requests with launches {counts}, expected "
+              f"1 with {expected}")
+    ti_pipe, res = results.pipes[0], results[0]
+    run_mod._warm_pipe = None
+    enc = ti_pipe.text_encoder
+    name_ids = enc.tokenizer.encode(TI_NAME)
+    if enc.embedding_db.version != 1 or enc.embedding_db.find(name_ids, 0)[1] != len(name_ids):
+        _fail("TI: the CLI did not register the embedding")
+    got = enc.encode_line(TI_PROMPT)  # the request's own encoding, from the line cache
+    on_card = _hand_splice(enc.model, enc.tokenizer, TI_PROMPT, vec, "cuda")[0]
+    cpu32 = copy.deepcopy(enc.model).to("cpu", torch.float32)
+    want = _hand_splice(cpu32, enc.tokenizer, TI_PROMPT, vec, "cpu")[0]
+    cpu16 = _hand_splice(cpu32.to(torch.bfloat16), enc.tokenizer, TI_PROMPT, vec, "cpu")[0]
+    del cpu32
+    rel = lambda a, b: ((a.double().cpu() - b.double()).norm() / b.double().norm()).item()
+    err, floor = rel(got, want), rel(cpu16, want)
+    print(f"TI: CLI {t_cli:.3f} s (load, embedding, request); its conditioning {err:.3e} from "
+          f"a float32 CPU hand splice (bf16 CPU splice {floor:.3e}, limit "
+          f"{SMALL_RATIO * floor:.3e}), max |diff| to the card's hand splice "
+          f"{(got.float() - on_card.float()).abs().max().item():.3e}; launches {counts}",
+          flush=True)
+    if err > SMALL_RATIO * floor or not torch.equal(got, on_card):
+        _fail(f"TI: the card's conditioning is {err} from the hand splice (limit "
+              f"{SMALL_RATIO * floor}) or differs from the card's own hand splice")
+    del ti_pipe, enc, results
+    _release()
+    plain = _answer("TI: the same prompt without the embedding", pipe,
+                    T2VArgs(prompt=TI_PROMPT, seed=GEN_SEED, steps=STEPS, frames=T, width=PX,
+                            height=PX, cfg_scale=CFG), T, expected, STEPS)[1]
+    if np.array_equal(plain.frames, res.frames):
+        _fail("TI: the embedding did not change the frames")
+    return counts
+
+
+def _tiled_decode(pipe) -> dict:
+    """A ZeroScope-sized latent (24 frames, 72 x 128) decoded on 64-pixel
+    tiles with a 16-pixel overlap (6 tiles of 4,096 mid-block tokens a frame
+    chunk: flash at D = 512) and untiled (9,216 tokens), timed with their
+    peak memory; flash launches against the tile count. Both decodes' flash
+    shapes are ``FLASH_CASES``, where ``check_flash`` holds the kernel on
+    random inputs; here every flash call of both decodes is held against
+    ``flash_attention_plain`` on the call's own inputs (``check_flash``'s
+    limit), and a planted fault (flash leaving one 64-row query tile of
+    each call at zero) must fail that check. The tiled and the untiled
+    frames are also each held against the same decode with every attention
+    on the plain path (``flash_takes`` barred)."""
+    import numpy as np
+    import torch
+
+    from t2v_torch.kernels import attention as attention_mod
+    from t2v_torch.kernels.flash_attention import flash_attention_plain
+    from t2v_torch.models.vae_tiled import _tile_starts
+    from t2v_torch.pipeline.pipeline import _spatial_scale, decode_chunk_frames
+
+    f, h, w, _ = TILED_LATENT
+    up = _spatial_scale(pipe.vae_cfg)
+    step_f = decode_chunk_frames(f, h * up, w * up)
+    chunks = -(-f // step_f)
+    tiles = (len(_tile_starts(h, TILE, TILE - TILE_OVERLAP))
+             * len(_tile_starts(w, TILE, TILE - TILE_OVERLAP)))
+    for n in (TILE * TILE, h * w):
+        if (step_f, n, n, 512, 512 ** -0.5) not in FLASH_CASES:
+            _fail(f"tiled decode: flash shape {(step_f, n, n, 512)} is not in FLASH_CASES")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    z = torch.randn(TILED_LATENT, generator=g, device="cuda")
+    flash = attention_mod.flash_attention
+
+    def missed_query_tile(q, k, v, scale=None):
+        out = flash(q, k, v, scale).clone()
+        mid = q.shape[1] // 2  # the tile's middle row: full weight in the blend
+        out[:, mid : mid + 64] = 0
+        return out
+
+    def decode(label, tile, attn: str, record: bool = False):
+        """Frames, launch counts and, with ``record``, the flash calls'
+        inputs and outputs (copies that add to the peak memory)."""
+        calls = []
+
+        def recorded(q, k, v, scale=None):
+            out = (missed_query_tile if attn == "fault" else flash)(q, k, v, scale)
+            calls.append((q.clone(), k.clone(), v.clone(), scale, out.clone()))
+            return out
+
+        pipe.decode_tile, pipe.decode_tile_overlap = tile, TILE_OVERLAP
+        takes = attention_mod.flash_takes
+        if attn == "plain":
+            attention_mod.flash_takes = lambda q: False
+        elif record:
+            attention_mod.flash_attention = recorded
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        _reset_counters()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (_no_plain_on_cuda() if attn == "kernels" else contextlib.nullcontext()):
+                frames = pipe.decode_latents(z)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            attention_mod.flash_takes, attention_mod.flash_attention = takes, flash
+            pipe.decode_tile = None
+        counts = _read_counters()
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+        print(f"tiled decode: {label}: {dt:.3f} s, peak {peak:.2f} GiB above the resident "
+              f"weights, frames {frames.shape}, flash launches {counts['flash_attention']}",
+              flush=True)
+        if frames.shape != (f, h * up, w * up, 3) or frames.dtype != np.uint8:
+            _fail(f"tiled decode: {label}: frames {frames.shape} {frames.dtype}")
+        return frames, counts, calls
+
+    def calls_err(label, calls) -> float:
+        """The largest |kernel - plain| of the calls over its limit."""
+        worst = 0.0
+        for q, k, v, scale, got in calls:
+            want = flash_attention_plain(q, k, v, scale).float()
+            err = (got.float() - want).abs().max().item()
+            worst = max(worst, err / (TOL_SHARE * max(1.0, want.abs().max().item())))
+        print(f"tiled decode: {label}: {len(calls)} flash calls {tuple(calls[0][0].shape)} on "
+              f"their own inputs, the largest error {worst:.3f} of the limit "
+              f"({TOL_SHARE:.0%} of max |out|)", flush=True)
+        calls.clear()
+        return worst
+
+    def frame_err(label, got, want) -> float:
+        a, b = got.astype(np.float64), want.astype(np.float64)
+        err = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        print(f"tiled decode: {label}: {err:.3e} relative RMS from the plain path's frames "
+              f"(limit {TILED_FRAME_RMS:.0e}), max {int(np.abs(a - b).max())} levels",
+              flush=True)
+        return err
+
+    out, frames, plain = {}, {}, {}
+    for label, tile, want in ((f"tiled {TILE}/{TILE_OVERLAP}", TILE, chunks * tiles),
+                              ("untiled", None, chunks)):
+        frames[tile], counts, _ = decode(f"{label}, kernels", tile, "kernels")
+        out[f"{label}, kernels"] = counts
+        if counts != {**{k: 0 for k in counts}, "flash_attention": want}:
+            _fail(f"{label} decode: launches {counts}, expected {want} flash launches "
+                  f"({chunks} chunks) and nothing else")
+        again, _, calls = decode(f"{label}, kernels, flash calls recorded", tile, "kernels",
+                                 record=True)
+        if len(calls) != want or not np.array_equal(again, frames[tile]):
+            _fail(f"{label} decode: {len(calls)} flash calls recorded, expected {want}, or "
+                  f"the recorded decode's frames differ")
+        if calls_err(f"{label}, kernel", calls) > 1.0:
+            _fail(f"{label} decode: a flash call is further from its plain version than "
+                  f"{TOL_SHARE:.0%} of max |out|")
+        plain[tile], counts, _ = decode(f"{label}, plain attention", tile, "plain")
+        if any(counts.values()):
+            _fail(f"{label} decode: the plain attention launched kernels: {counts}")
+        if frame_err(f"{label}, kernel", frames[tile], plain[tile]) > TILED_FRAME_RMS:
+            _fail(f"{label} decode: the kernel's frames are more than {TILED_FRAME_RMS} from "
+                  f"the plain path's")
+    fault, _, calls = decode(f"tiled {TILE}/{TILE_OVERLAP}, planted fault", TILE, "fault",
+                             record=True)
+    if calls_err("planted fault (a 64-row query tile left at zero)", calls) <= 1.0:
+        _fail("tiled decode: the per-call check passes a flash that skips a query tile")
+    frame_err("planted fault, frames (reported: the frame check is not the kernel's)", fault,
+              plain[TILE])
+    print(f"tiled decode: tiled against untiled mean "
+          f"{np.abs(frames[TILE].astype(np.float64) - frames[None]).mean():.2f} levels "
+          f"({chunks} chunks x {tiles} tiles)", flush=True)
+    return out
+
+
+VC_NAME = "chip_smoke_vc"
+VC_LORA_RANK, VC_LORA_ALPHA = 4, 0.75
+
+
+def _on(results, pipe) -> bool:
+    """Whether ``results`` holds one request, answered by ``pipe``."""
+    return len(results.pipes) == 1 and results.pipes[0] is pipe
+
+
+def _write_vc_dir(pipe, out: Path) -> int:
+    """A VideoCrafter directory in the published layout from ``pipe``: a
+    float32 Lightning ``model.ckpt`` (``convert_vc.lightning_state_dict``
+    under ``state_dict``), ``model_config.yaml`` (``base_t2v_yaml``) and the
+    vocab. Returns the bytes written."""
+    import shutil
+
+    import torch
+
+    from t2v_torch.io.convert_vc import base_t2v_yaml, lightning_state_dict
+
+    out.mkdir(parents=True)
+    (out / "model_config.yaml").write_text(base_t2v_yaml(pipe.cfg, pipe.vae_cfg, VC_T))
+    torch.save({"state_dict": lightning_state_dict(pipe.unet, pipe.vae, pipe.clip),
+                "global_step": 0, "epoch": 0}, out / "model.ckpt")
+    shutil.copy(VOCAB, out / "bpe_simple_vocab_16e6.txt.gz")
+    return sum(f.stat().st_size for f in out.iterdir())
+
+
+def _vc_lora_file(pipe, path: Path) -> dict:
+    """A seeded rank-4 LVDM LoRA over every target of the UNet's index,
+    written as .safetensors; returns its float32 factors."""
+    import torch
+
+    from t2v_torch.io.convert_vc import vc_module_index
+    from t2v_torch.io.safetensors_io import save_safetensors
+
+    g = torch.Generator().manual_seed(29)
+    params = pipe.unet.state_dict()
+    sd = {}
+    for name, (pname, _) in vc_module_index(pipe.cfg).items():
+        d_out, d_in = params[pname].shape
+        sd[f"{name}.lora_up.weight"] = torch.randn((d_out, VC_LORA_RANK), generator=g) * 0.05
+        sd[f"{name}.lora_down.weight"] = torch.randn((VC_LORA_RANK, d_in), generator=g) * 0.05
+    save_safetensors(str(path), {k: v.numpy() for k, v in sd.items()})
+    return sd
+
+
+def _check_lvdm_merge(merged, base: dict, lora: dict, cfg) -> None:
+    """Every LoRA target of ``merged`` (a UNet on the card) against
+    ``W + alpha * up @ down`` computed on the CPU from the unmerged bf16
+    ``base``, within one bf16 rounding step; every other tensor unchanged."""
+    import torch
+
+    from t2v_torch.io.convert_vc import vc_module_index
+
+    got = merged.state_dict()
+    targets = {pname: name for name, (pname, _) in vc_module_index(cfg).items()}
+    worst, exact = 0.0, 0
+    for pname, w in base.items():
+        g = got[pname].cpu()
+        if pname not in targets:
+            if not torch.equal(g, w):
+                _fail(f"LVDM LoRA: {pname} changed, and it is no target")
+            continue
+        name = targets[pname]
+        delta = (lora[f"{name}.lora_up.weight"] @ lora[f"{name}.lora_down.weight"]) * VC_LORA_ALPHA
+        want = (w.float() + delta).to(torch.bfloat16).float()
+        diff = (g.float() - want).abs()
+        worst = max(worst, (diff / want.abs().clamp_min(1e-30)).max().item())
+        exact += torch.equal(g.float(), want)
+        if (diff > want.abs() * 2.0 ** -7).any():
+            _fail(f"LVDM LoRA: {pname} is more than one bf16 step from W + alpha up@down")
+    print(f"LVDM LoRA: {len(targets)} targets merged as W + {VC_LORA_ALPHA} up@down (rank "
+          f"{VC_LORA_RANK}), {exact} of them bit-identical to the CPU sum, the largest "
+          f"relative difference {worst:.2e}; every other tensor unchanged", flush=True)
+
+
+def drive_vcgenerate() -> dict:
+    """VideoCrafter from a published directory to an mp4: write a
+    full-width ``model.ckpt`` + ``model_config.yaml`` + vocab from a seeded
+    bf16 pipeline (``os.sync()`` after), load it with ``load_vc_pipeline``
+    (every tensor bit-identical to the source's bf16), answer the 16-frame
+    request in process, through ``run`` by name, through ``cli.generate
+    --model-type VideoCrafter --model-dir`` and through one HTTP API request
+    (identical frames, launch counts); the CLI again with a seeded rank-4
+    LVDM ``--lora`` (merged weights against the CPU sum, frames changed);
+    a 'Main Model Only' pair through ``run`` (``release_aux`` frees the
+    VAE's and CLIP-L's bytes, identical frames after the reload). Returns
+    the launches of each path."""
+    import os
+    import shutil
+    import tempfile
+    import urllib.parse
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from t2v_torch.api.stdlib_server import serve
+    from t2v_torch.cli import generate
+    from t2v_torch.core.config import CLIPTextConfig, T2VArgs, T2VOutputArgs
+    from t2v_torch.core.dtypes import Policy
+    from t2v_torch.models.videocrafter_unet import count_vc_kernel_sites
+    from t2v_torch.pipeline import pipeline as pl
+    from t2v_torch.pipeline import run as run_mod
+    from t2v_torch.pipeline import videocrafter as vc
+    from t2v_torch.text.tokenizer import CLIPTokenizer
+
+    try:
+        import cv2  # noqa: F401
+        files = True
+    except ImportError:
+        files = False
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_vc_", dir=REPO))
+    launches, srv, saved_root = {}, None, os.environ.get("T2V_MODELS_ROOT")
+    try:
+        src = vc.VideoCrafterPipeline.random_init(
+            policy=Policy.bf16(), seed=5, device="cuda", clip_cfg=CLIPTextConfig.clip_l_14())
+        _perturb_zero_leaves(src)
+        src.tokenizer = CLIPTokenizer.from_vocab_file(str(VOCAB))
+        model_dir = root / "text2video" / VC_NAME
+        t0 = time.perf_counter()
+        nbytes = _write_vc_dir(src, model_dir)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        os.sync()
+        t_sync = time.perf_counter() - t0
+
+        _release()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pipe = vc.load_vc_pipeline(str(model_dir))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        n = _same_weights(pipe, src)
+        print(f"vcgenerate: wrote {nbytes / 1e9:.3f} GB (model.ckpt, model_config.yaml, vocab) in "
+              f"{t_write:.2f} s (then os.sync {t_sync:.2f} s); load_vc_pipeline {t_load:.2f} s "
+              f"({nbytes / 1e9 / t_load:.2f} GB/s), "
+              f"{(torch.cuda.memory_allocated() - mem0) / 2**30:.3f} GiB on the card; {n} tensors "
+              f"bit-identical to the source's bf16; CLIP-L {pipe.clip_cfg.layers} layers, "
+              f"{pipe.clip_cfg.vocab_size} rows", flush=True)
+
+        expected = _expected(count_vc_kernel_sites(pipe.cfg, VC_T, LAT, LAT), VC_STEPS, 1)
+        args = T2VArgs(prompt=GEN_PROMPT, seed=GEN_SEED, steps=VC_STEPS, frames=VC_T, width=PX,
+                       height=PX, cfg_scale=CFG, model_type="VideoCrafter", model=VC_NAME)
+        want = _answer("vcgenerate: source pipeline 16f", src, args, VC_T, expected,
+                       VC_STEPS)[1].frames
+        got = _answer("vcgenerate: loaded pipeline 16f", pipe, args, VC_T, expected, VC_STEPS)[1]
+        _same_frames("vcgenerate: the loaded pipeline", got.frames, want)
+        t_in_process = sum(got.timings.values())
+        del src
+        _release()
+
+        os.environ["T2V_MODELS_ROOT"] = str(root)
+        _reset_counters()
+        t0 = time.perf_counter()
+        with _no_plain_on_cuda(), _no_frame_files(not files), \
+                _recording_infer(vc.VideoCrafterPipeline) as results:
+            run_mod.run(args, T2VOutputArgs(), outdir=str(root / "run"))
+        t_run = time.perf_counter() - t0
+        launches["vcgenerate_run"] = counts = _read_counters()
+        if not _on(results, pipe) or counts != expected:
+            _fail(f"vcgenerate: run answered {len(results)} requests (on the cached pipeline: "
+                  f"{_on(results, pipe)}) with launches {counts}, expected {expected}")
+        _same_frames("vcgenerate: run by name", results[0].frames, want)
+        print(f"vcgenerate: run by name {t_run:.3f} s (request and outputs) against "
+              f"{t_in_process:.3f} s in process; launches {counts}", flush=True)
+
+        cli_argv = ["--model-type", "VideoCrafter", "--prompt", GEN_PROMPT, "--seed",
+                    str(GEN_SEED), "--steps", str(VC_STEPS), "--frames", str(VC_T), "--width",
+                    str(PX), "--height", str(PX), "--cfg-scale", str(CFG), "--json"]
+        if not files:
+            cli_argv.append("--skip-video-creation")
+        for label, extra in (("CLI", ["--model-dir", str(model_dir)]),
+                             ("CLI with an LVDM LoRA", [
+                                 "--model-dir", str(model_dir / "model.ckpt"), "--lora",
+                                 str(root / "lvdm_lora.safetensors"), "--lora-alpha",
+                                 str(VC_LORA_ALPHA)])):
+            lora = _vc_lora_file(pipe, root / "lvdm_lora.safetensors") if "--lora" in extra \
+                else None
+            _reset_counters()
+            t0 = time.perf_counter()
+            with _no_plain_on_cuda(), _no_frame_files(not files), \
+                    _recording_infer(vc.VideoCrafterPipeline) as results:
+                generate.main([*cli_argv, *extra, "--outdir", str(root / label.replace(" ", "_"))])
+            t_cli = time.perf_counter() - t0
+            key = "vcgenerate_cli_lora" if lora else "vcgenerate_cli"
+            launches[key] = counts = _read_counters()
+            if len(results) != 1 or counts != expected:
+                _fail(f"vcgenerate: the {label} answered {len(results)} requests with launches "
+                      f"{counts}, expected 1 with {expected}")
+            tm = results[0].timings
+            print(f"vcgenerate: {label} {t_cli:.3f} s for load, request and outputs; its "
+                  f"request {sum(tm.values()):.3f} s (text {tm['text']:.3f}, sample "
+                  f"{tm['sample']:.3f}, decode {tm['decode']:.3f}); launches {counts}",
+                  flush=True)
+            if lora is None:
+                _same_frames("vcgenerate: the CLI request", results[0].frames, want)
+            else:
+                base = {k: v.cpu() for k, v in pipe.unet.state_dict().items()}
+                _check_lvdm_merge(results.pipes[0].unet, base, lora, pipe.cfg)
+                del base
+                if np.array_equal(results[0].frames, want):
+                    _fail("vcgenerate: the LVDM LoRA did not change the frames")
+            del results
+            run_mod._warm_pipe = None
+            _release()
+
+        srv = serve(port=0, block=False)
+        host, port = srv.server_address
+        query = (f"prompt={urllib.parse.quote(GEN_PROMPT)}&model_type=VideoCrafter"
+                 f"&model={VC_NAME}&seed={GEN_SEED}&steps={VC_STEPS}&frames={VC_T}&width={PX}"
+                 f"&height={PX}&cfg_scale={CFG}")
+        _reset_counters()
+        t0 = time.perf_counter()
+        with _no_plain_on_cuda(), _no_frame_files(not files), \
+                _recording_infer(vc.VideoCrafterPipeline) as results:
+            req = urllib.request.Request(f"http://{host}:{port}/t2v/run?{query}", data=b"",
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                status, body = r.status, json.loads(r.read())
+        t_api = time.perf_counter() - t0
+        launches["vcgenerate_api"] = counts = _read_counters()
+        if status != 200 or len(body["mp4s"]) != int(files) or not _on(results, pipe):
+            _fail(f"vcgenerate: the API answered {status} with {len(body.get('mp4s', []))} "
+                  f"videos, {len(results)} requests (on the cached pipeline: "
+                  f"{_on(results, pipe)})")
+        if counts != expected:
+            _fail(f"vcgenerate: API launches {counts}, expected {expected}")
+        _same_frames("vcgenerate: the API request", results[0].frames, want)
+        tm = results[0].timings
+        print(f"vcgenerate: API {t_api:.3f} s a request over HTTP (its infer "
+              f"{sum(tm.values()):.3f} s); launches {counts}", flush=True)
+        del results
+
+        mem = torch.cuda.memory_allocated()
+        aux = _module_bytes(pipe.vae, pipe.clip)
+        frames, freed = [], []
+        for i in range(2):
+            _reset_counters()
+            t0 = time.perf_counter()
+            with _no_plain_on_cuda(), _no_frame_files(not files), \
+                    _recording_infer(vc.VideoCrafterPipeline) as results:
+                run_mod.run(args, T2VOutputArgs(), outdir=str(root / "mmo"),
+                            keep_in_vram="Main Model Only")
+            t_run = time.perf_counter() - t0
+            gc.collect()
+            freed.append(mem - torch.cuda.memory_allocated())
+            if pipe.vae is not None or pipe.clip is not None or freed[-1] < aux:
+                _fail(f"vcgenerate: 'Main Model Only' request {i} freed {freed[-1]} bytes, less "
+                      f"than the VAE's and CLIP-L's {aux}")
+            if _read_counters() != expected or not _on(results, pipe):
+                _fail(f"vcgenerate: 'Main Model Only' launches {_read_counters()}")
+            frames.append(results[0].frames)
+            del results
+            print(f"vcgenerate: 'Main Model Only' request {i}: {t_run:.3f} s (reload included "
+                  f"from the second), memory_allocated {mem / 2**30:.3f} -> "
+                  f"{(mem - freed[-1]) / 2**30:.3f} GiB (VAE + CLIP-L {aux / 2**30:.3f} GiB)",
+                  flush=True)
+        for i, f in enumerate(frames):
+            _same_frames(f"vcgenerate: 'Main Model Only' request {i}", f, want)
         del pipe
     finally:
         if srv is not None:
@@ -2361,10 +2887,16 @@ def _print_breakdown(kernels, busy: float, top: int = 10) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=("kernels", "small", "modelscope", "generate", "modes",
-                                           "videocrafter", "train"),
-                        help="run the build and one group of phases; prints no result line")
+    phases = ("kernels", "small", "modelscope", "generate", "modes", "videocrafter",
+              "vcgenerate", "train")
+    parser.add_argument("--only", help="run the build and these groups of phases (comma-"
+                        f"separated, of {', '.join(phases)}); prints no result line")
     only = parser.parse_args().only
+    if only is not None:
+        only = set(only.split(","))
+        if not only <= set(phases):
+            parser.error(f"--only: unknown phases {sorted(only - set(phases))}")
+    run = lambda *names: only is None or bool(only & set(names))
     try:
         import torch
     except ImportError:
@@ -2383,10 +2915,10 @@ def main() -> int:
 
     build_kernels()
     records, launches = [], {}
-    if only in (None, "kernels"):
+    if run("kernels"):
         records = check_kernels()
         print(f"kernel checks done at {time.perf_counter() - t_start:.0f} s", flush=True)
-    if only in (None, "small"):
+    if run("small"):
         small = check_small_pipeline()
         if not all(small[k] for k in ("temporal_conv", "flash_attention", "fused_self_mha")):
             _fail(f"the small pipeline did not run every ModelScope kernel: {small}")
@@ -2396,7 +2928,7 @@ def main() -> int:
             _fail(f"the small VideoCrafter pipeline did not run every kernel of its path: {small}")
         check_fp32_pipelines()
         print(f"small pipelines done at {time.perf_counter() - t_start:.0f} s", flush=True)
-    if only in (None, "train"):
+    if run("train"):
         check_gradients()
         small = check_small_training()
         if not all(small[k] for k in ("temporal_conv", "flash_attention", "flash_bwd_dkv",
@@ -2404,22 +2936,25 @@ def main() -> int:
             _fail(f"the small training step did not run every kernel of its path: {small}")
         print(f"gradient checks and small training step done at "
               f"{time.perf_counter() - t_start:.0f} s", flush=True)
-    serve, train = only is None, only in (None, "train")
-    if only in (None, "modelscope", "train"):
-        launches.update(drive_modelscope(serve or only == "modelscope", train))
+    train = run("train")
+    if run("modelscope", "train"):
+        launches.update(drive_modelscope(run("modelscope"), train))
         print(f"ModelScope done at {time.perf_counter() - t_start:.0f} s", flush=True)
-    if only in (None, "generate"):
+    if run("generate"):
         launches.update(drive_generate())
         print(f"generate done at {time.perf_counter() - t_start:.0f} s", flush=True)
-    if only in (None, "modes"):
+    if run("modes"):
         by_name = {r.name: r for r in records}
         recs = {n: by_name.get(n) or KernelRecord(n, "", "", "") for n in
                 ("fused_temporal_mha", "geglu")}
         launches.update(drive_modes(recs))
         print(f"ModelScope modes done at {time.perf_counter() - t_start:.0f} s", flush=True)
-    if only in (None, "videocrafter", "train"):
-        launches.update(drive_videocrafter(serve or only == "videocrafter", train))
+    if run("videocrafter", "train"):
+        launches.update(drive_videocrafter(run("videocrafter"), train))
         print(f"VideoCrafter done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    if run("vcgenerate"):
+        launches.update(drive_vcgenerate())
+        print(f"vcgenerate done at {time.perf_counter() - t_start:.0f} s", flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2427,7 +2962,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     if only is not None:
-        print(f"chip_smoke --only {only}: done; the full run prints the result line")
+        print(f"chip_smoke --only {','.join(sorted(only))}: done; the full run prints the "
+              "result line")
         return 0
     for rec in records:
         if not launches[rec.path][rec.counter]:

@@ -3,16 +3,22 @@ output options, and ``--device`` (the card by default).
 
 Usage:
   python -m t2v_torch.cli.generate --model-dir /path/to/modelscope \\
-      --prompt "a bunny in the forest" --frames 24 --steps 30
+      --prompt "a bunny in the forest" --frames 24 --steps 30 \\
+      [--embeddings-dir /path/to/embeddings] [--lora stable_lora.safetensors]
+  python -m t2v_torch.cli.generate --model-type VideoCrafter \\
+      --model-dir /path/to/VideoCrafter [--lora lvdm_lora.safetensors] \\
+      --prompt "a corgi on the beach" --frames 16 --steps 20 --cfg-scale 9
   python -m t2v_torch.cli.generate --serve --port 7860      # WebAPI server
 
-On the card the weights are bf16 unless ``--fp32``; on the CPU
+A VideoCrafter ``--model-dir`` is a directory with ``model.ckpt`` and
+``model_config.yaml`` (or one the trainer saved), or the ``.ckpt`` itself;
+its ``--lora`` files are LVDM (``lora_up`` / ``lora_down``) LoRAs merged at
+load. On the card the weights are bf16 unless ``--fp32``; on the CPU
 (``--device cpu``) they are float32 and every kernel runs its plain
-PyTorch version. Not ported yet, and refused by name: textual-inversion
-embeddings (``--embeddings-dir``), VideoCrafter checkpoints
-(``--model-type VideoCrafter --model-dir``), the depth adapter
-(``--adapter-*``, ``--depth-ckpt``) and sharded sampling (``--dp/--tp/
---sp-shards`` above 1).
+PyTorch version. Not ported yet, and refused by name: VideoCrafter's other
+samplers and CFG variants (``--vc-sample-type``, ``--uc-type``), the depth
+adapter (``--adapter-*``, ``--depth-ckpt``) and sharded sampling
+(``--dp/--tp/--sp-shards`` above 1).
 """
 
 from __future__ import annotations
@@ -60,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     # lora
     p.add_argument("--lora", action="append", default=[],
-                   help=".safetensors stable-lora file (repeatable)")
+                   help=".safetensors stable-lora file, or an LVDM LoRA file with --model-type "
+                   "VideoCrafter (repeatable)")
     p.add_argument("--lora-alpha", type=float, default=1.0)
     p.add_argument("--vc-sample-type", default="ddim", choices=["ddim", "ddpm", "dpm++ 2m"],
                    help="VideoCrafter denoising chain (only ddim is ported)")
@@ -70,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adapter-video", help="adapter input video (not ported yet)")
     p.add_argument("--depth-ckpt", help="midas_v21_small checkpoint (not ported yet)")
     p.add_argument("--embeddings-dir",
-                   help="textual-inversion embeddings directory (not ported yet)")
+                   help="textual-inversion embeddings directory (A1111 .pt/.bin/.safetensors; "
+                   "ModelScope)")
     p.add_argument(
         "--comma-padding-backtrack", type=int, default=20,
         help="A1111 opts.comma_padding_backtrack: move the tail after a comma to the next "
@@ -129,18 +137,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refusals(ns) -> list[str]:
     """The flags of ``ns`` that ask for what the port does not run yet,
-    each with the slice that brings it."""
+    each with the slice that brings it, or for what this call cannot do."""
     out = []
-    if ns.embeddings_dir:
-        out.append("--embeddings-dir: textual inversion is not ported yet (the ModelScope "
-                   "LoRA and text slice)")
-    if ns.model_dir and ns.model_type == "VideoCrafter":
-        out.append("--model-type VideoCrafter --model-dir: the VideoCrafter loaders are not "
-                   "ported yet (the VideoCrafter slice)")
+    if ns.embeddings_dir and ns.model_type == "VideoCrafter":
+        out.append("--embeddings-dir: textual inversion splices into the ModelScope text "
+                   "encoder; VideoCrafter's CLIP-L encoding takes none")
+    elif ns.embeddings_dir and not (ns.model_dir or ns.tiny):
+        out.append("--embeddings-dir: needs the pipeline this call loads (--model-dir or --tiny)")
+    if ns.vc_sample_type != "ddim":
+        out.append(f"--vc-sample-type {ns.vc_sample_type}: VideoCrafter's other samplers are not "
+                   "ported yet (the VideoCrafter branches slice)")
+    if ns.uc_type is not None:
+        out.append("--uc-type: VideoCrafter's CFG variants are not ported yet (the VideoCrafter "
+                   "branches slice)")
     for flag in ("adapter_ckpt", "adapter_video", "depth_ckpt"):
         if getattr(ns, flag):
             out.append(f"--{flag.replace('_', '-')}: the depth adapter is not ported yet (the "
-                       "VideoCrafter slice)")
+                       "VideoCrafter branches slice)")
     for flag in ("dp_shards", "tp_shards", "sp_shards"):
         if getattr(ns, flag) > 1:
             out.append(f"--{flag.replace('_', '-')} {getattr(ns, flag)}: sharded sampling is "
@@ -218,21 +231,33 @@ def main(argv=None) -> int:
 
     policy = Policy.fp32() if ns.fp32 or device.type == "cpu" else Policy.bf16()
     pipe = None
-    if ns.tiny:
-        if ns.model_type == "VideoCrafter":
-            from t2v_torch.core.config import VideoCrafterUNetConfig
-            from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
+    is_vc = ns.model_type == "VideoCrafter"
+    if is_vc and (ns.tiny or ns.model_dir):
+        from t2v_torch.core.config import VideoCrafterUNetConfig
+        from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
 
+        if ns.tiny:
             pipe = VideoCrafterPipeline.random_init(VideoCrafterUNetConfig().tiny(), policy,
                                                     device=device)
+        elif os.path.isdir(ns.model_dir):
+            pipe = VideoCrafterPipeline.from_model_dir(ns.model_dir, policy, device=device)
         else:
-            pipe = ModelScopePipeline.random_init(policy=policy, device=device)
-    elif ns.model_dir:
-        pipe = ModelScopePipeline.from_model_dir(ns.model_dir, policy, device=device)
-    if ns.lora:
-        if not isinstance(pipe, ModelScopePipeline):
-            raise SystemExit("--lora: stable-lora files merge into a ModelScope pipeline "
-                             "(--tiny or --model-dir); VideoCrafter LoRA is not ported yet")
+            pipe = VideoCrafterPipeline.from_checkpoint(ns.model_dir, policy=policy,
+                                                        device=device)
+        for lora_path in ns.lora:  # LVDM lora_up / lora_down files
+            skipped = pipe.load_lora(lora_path, ns.lora_alpha)
+            print(f"merged LVDM LoRA {os.path.basename(lora_path)} (skipped {len(skipped)})")
+    elif ns.tiny or ns.model_dir:
+        pipe = (ModelScopePipeline.random_init(policy=policy, device=device) if ns.tiny
+                else ModelScopePipeline.from_model_dir(ns.model_dir, policy, device=device))
+        if ns.embeddings_dir:
+            loaded = pipe.text_encoder.embedding_db.load_dir(ns.embeddings_dir)
+            if loaded:
+                print(f"loaded textual-inversion embeddings: {', '.join(loaded)}")
+    if ns.lora and pipe is None:
+        raise SystemExit("--lora: LoRA files merge into the pipeline this call loads "
+                         "(--tiny or --model-dir)")
+    if ns.lora and not is_vc:
         from t2v_torch.io.safetensors_io import load_safetensors
 
         for lora_path in ns.lora:

@@ -6,8 +6,9 @@ LoRA over the ModelScope UNet's linears or as a full fine-tune with an
 optional EMA shadow. LoRA runs save reference-compatible stable-lora
 ``.safetensors``; full runs save the weights as safetensors (with the BPE
 vocab, so that the directory loads with ``--model-dir``); both save the
-full train state for ``--resume``. ``--model-dir`` fine-tunes a ModelScope
-directory (the published layout or a saved one) in the device's dtype.
+full train state for ``--resume``. ``--model-dir`` fine-tunes a model
+directory (the published layout or a saved one) of the ``--model-type``
+family in the device's dtype; ``--vc-ckpt`` a VideoCrafter ``model.ckpt``.
 
 Usage:
   python -m t2v_torch.cli.train --data-dir /data/webvid --tiny \\
@@ -30,11 +31,12 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--data-dir", required=True)
     p.add_argument("--meta-path")
-    p.add_argument("--model-dir", help="ModelScope model directory to fine-tune (the published "
-                   "layout, or one this trainer saved); default: seeded random weights")
+    p.add_argument("--model-dir", help="model directory of the --model-type family to fine-tune "
+                   "(the published layout, or one this trainer saved); default: seeded random "
+                   "weights")
     p.add_argument("--model-type", default="ModelScope", choices=["ModelScope", "VideoCrafter"],
                    help="UNet family to train (both share the step)")
-    p.add_argument("--vc-ckpt", help="not ported yet: the VideoCrafter loaders are a later slice")
+    p.add_argument("--vc-ckpt", help="VideoCrafter model.ckpt to fine-tune from")
     p.add_argument("--out", default="ckpts")
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--frames", type=int, default=16)
@@ -72,10 +74,9 @@ def main(argv=None) -> int:
     if ns.sp != 1 or ns.tp != 1:
         raise SystemExit("--sp/--tp: meshes are not ported yet (the multi-GPU slice); "
                          "the port trains on one device")
-    if ns.vc_ckpt or (ns.model_dir and ns.model_type == "VideoCrafter"):
-        raise SystemExit("--model-dir/--vc-ckpt: the VideoCrafter loaders are not ported yet "
-                         "(the VideoCrafter slice); --model-dir loads ModelScope only, and "
-                         "without either the UNet starts from seeded random weights")
+    if ns.vc_ckpt and (ns.model_type != "VideoCrafter" or ns.model_dir):
+        raise SystemExit("--vc-ckpt: a VideoCrafter checkpoint, taken with --model-type "
+                         "VideoCrafter and without --model-dir")
 
     import torch
 
@@ -104,8 +105,13 @@ def main(argv=None) -> int:
     if is_vc:
         from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
 
-        cfg = VideoCrafterUNetConfig().tiny() if ns.tiny else VideoCrafterUNetConfig()
-        pipe = VideoCrafterPipeline.random_init(cfg, policy, seed=ns.seed, device=device)
+        if ns.vc_ckpt:
+            pipe = VideoCrafterPipeline.from_checkpoint(ns.vc_ckpt, policy=policy, device=device)
+        elif ns.model_dir:
+            pipe = VideoCrafterPipeline.from_model_dir(ns.model_dir, policy, device=device)
+        else:
+            cfg = VideoCrafterUNetConfig().tiny() if ns.tiny else VideoCrafterUNetConfig()
+            pipe = VideoCrafterPipeline.random_init(cfg, policy, seed=ns.seed, device=device)
         unet_cfg, text_model = pipe.cfg, pipe.clip
         vocab = getattr(pipe.tokenizer, "source_path", None)
         encode_caption = lambda c: pipe.encode_text([c])

@@ -117,6 +117,42 @@ class VideoCrafterUNetConfig:
     linear_end: float = 0.012
     scale_factor: float = 0.18215
 
+    @classmethod
+    def from_yaml_dict(cls, cfg: dict) -> "VideoCrafterUNetConfig":
+        """Parse a ``model_config.yaml`` (as a dict): the UNet's
+        ``model.params.unet_config.params`` and the diffusion settings
+        beside them. A ``cond_stage2_config`` makes the model FPS-conditioned
+        (``cond_stage2_key`` "temporal_context" unless it names another)."""
+        m = cfg["model"]["params"]
+        u = m["unet_config"]["params"]
+        return cls(
+            in_channels=u["in_channels"],
+            out_channels=u["out_channels"],
+            model_channels=u["model_channels"],
+            num_res_blocks=u["num_res_blocks"],
+            attention_resolutions=tuple(u["attention_resolutions"]),
+            channel_mult=tuple(u["channel_mult"]),
+            num_heads=u["num_heads"],
+            transformer_depth=u.get("transformer_depth", 1),
+            context_dim=u["context_dim"],
+            kernel_size_t=u.get("kernel_size_t", 1),
+            padding_t=u.get("padding_t", 0),
+            temporal_length=u.get("temporal_length", 16),
+            use_relative_position=u.get("use_relative_position", True),
+            num_classes=u.get("num_classes"),
+            conditioning_key=m.get("conditioning_key", "crossattn"),
+            cond_stage2_key=(
+                m.get("cond_stage2_key", "temporal_context")
+                if m.get("cond_stage2_config") is not None
+                else m.get("cond_stage2_key")
+            ),
+            parameterization=m.get("parameterization", "eps"),
+            num_timesteps=m.get("timesteps", 1000),
+            linear_start=m.get("linear_start", 0.00085),
+            linear_end=m.get("linear_end", 0.012),
+            scale_factor=m.get("scale_factor", 0.18215),
+        )
+
     def tiny(self) -> "VideoCrafterUNetConfig":
         """A CPU-testable miniature with the same topology."""
         return dataclasses.replace(
@@ -146,6 +182,26 @@ class VAEConfig:
     resolution: int = 256
     double_z: bool = True
     scale_factor: float = 0.18215
+
+    @classmethod
+    def from_yaml_dict(cls, cfg: dict) -> "VAEConfig":
+        """The first stage of a VideoCrafter ``model_config.yaml`` (as a
+        dict): ``first_stage_config.params.ddconfig`` and the model's
+        ``scale_factor``, the published SD VAE's values where a key is
+        absent. The fields read are the JAX loader's (``attn_resolutions``
+        is not among them)."""
+        m = cfg.get("model", {}).get("params", {})
+        dd = m.get("first_stage_config", {}).get("params", {}).get("ddconfig", {})
+        return cls(
+            z_channels=dd.get("z_channels", 4),
+            in_channels=dd.get("in_channels", 3),
+            out_channels=dd.get("out_ch", 3),
+            ch=dd.get("ch", 128),
+            ch_mult=tuple(dd.get("ch_mult", (1, 2, 4, 4))),
+            num_res_blocks=dd.get("num_res_blocks", 2),
+            resolution=dd.get("resolution", 256),
+            scale_factor=m.get("scale_factor", 0.18215),
+        )
 
     def tiny(self) -> "VAEConfig":
         # ch must stay a multiple of 32 (GroupNorm groups)

@@ -321,8 +321,20 @@ def load_torch_checkpoint(path: str) -> dict:
     """A torch zip checkpoint (.pth / .bin / .ckpt) as a dict of CPU
     tensors, memory-mapped (nothing is read until a tensor is used) and
     through torch's weights-only unpickler, which refuses any global but
-    containers, tensors and dtypes. Tensors keep their stored dtype."""
-    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    containers, tensors and dtypes. Tensors keep their stored dtype. A file
+    that pickles another global (a Lightning checkpoint's
+    ``hyper_parameters`` object, say) raises ``ValueError`` naming it."""
+    import pickle
+    import re
+
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    except pickle.UnpicklingError as e:
+        blocked = re.search(r"GLOBAL (\S+)", str(e))
+        raise ValueError(
+            f"{path}: the checkpoint pickles "
+            f"{blocked.group(1) if blocked else 'an object'}, which the weights-only reader "
+            "refuses; save the checkpoint's tensors without it") from None
 
 
 def strip_first_stage_prefix(sd: Mapping) -> dict:

@@ -38,6 +38,22 @@ _DTYPES = {
 }
 
 
+def read_safetensors_metadata(path: str) -> dict[str, str] | None:
+    """The ``__metadata__`` of a file's header (None when it has none),
+    reading only the header. Raises ``ValueError`` on a file that is not
+    safetensors."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if len(head) != 8:
+            raise ValueError(f"{path}: too short for a safetensors header")
+        (header_len,) = struct.unpack("<Q", head)
+        raw = f.read(header_len)
+    header = json.loads(raw)  # a ValueError where the bytes are no JSON
+    if len(raw) != header_len or not isinstance(header, dict):
+        raise ValueError(f"{path}: malformed safetensors header")
+    return header.get("__metadata__")
+
+
 def load_safetensors(
     path: str, *, float32: bool = True
 ) -> tuple[dict[str, np.ndarray], dict[str, str]]:
@@ -61,8 +77,15 @@ def load_safetensors(
     return tensors, metadata
 
 
+# the reference writer lays tensors out by dtype, widest first (its dtype
+# enum's order, reversed), then by name
+_WRITE_ORDER = ("U64", "I64", "F64", "F32", "U32", "I32", "BF16", "F16", "U16", "I16", "I8",
+                "U8", "BOOL")
+
+
 def _write(path: str, entries: list[tuple[str, str, tuple[int, ...], bytes]],
            metadata: Mapping[str, str] | None) -> str:
+    entries = sorted(entries, key=lambda e: (_WRITE_ORDER.index(e[1]), e[0]))
     header: dict = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
@@ -83,7 +106,7 @@ def _write(path: str, entries: list[tuple[str, str, tuple[int, ...], bytes]],
 
 def save_safetensors(path: str, tensors: Mapping[str, np.ndarray],
                      metadata: Mapping[str, str] | None = None) -> str:
-    """Write numpy arrays (names sorted, as the reference writer orders them)."""
+    """Write numpy arrays, laid out as the reference writer lays them out."""
     tags = {v: k for k, v in _DTYPES.items() if v is not None}
     entries = []
     for name in sorted(tensors):

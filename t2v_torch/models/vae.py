@@ -8,6 +8,13 @@ reference state-dict names (``encoder.down.0.block.0.conv1.weight``,
 logvar) with the logvar clipped to [-30, 20]; ``DiagonalGaussian`` wraps the
 pair for sample / kl / nll / mode; ``encode_latents`` is the training
 path's deterministic encode (posterior mean x latent scale, float32).
+
+``cfg.attn_resolutions`` adds an ``AttnBlock`` after every ResnetBlock of a
+level at those resolutions (encoder levels from ``cfg.resolution`` down,
+decoder levels from the latent resolution up). Their heads are the level's
+width (128 or 256 channels in the SD VAE's layout), which the flash kernel
+does not take, so they run the plain attention at dispatch, as the JAX
+package leaves them to XLA. No shipped config sets them.
 """
 
 from __future__ import annotations
@@ -53,7 +60,8 @@ class ResnetBlock(nn.Module):
 
 class AttnBlock(nn.Module):
     """Single-head spatial self-attention with 1x1-conv projections; the
-    head is the full channel width (512 in the SD VAE), scale C^-0.5."""
+    head is the full channel width (512 in the SD VAE's mid-block), scale
+    C^-0.5."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -101,23 +109,36 @@ class _Mid(nn.Module):
         self.block_2 = ResnetBlock(ch, ch)
 
 
-class _UpLevel(nn.Module):
-    def __init__(self, block_in: int, block_out: int, n_blocks: int, upsample: bool):
+class _Level(nn.Module):
+    """``n_blocks`` ResnetBlocks, each followed by an AttnBlock when
+    ``attn``, then the level's resampler (``downsample`` / ``upsample``)."""
+
+    def __init__(self, block_in: int, block_out: int, n_blocks: int, attn: bool):
         super().__init__()
         self.block = nn.ModuleList(
             [ResnetBlock(block_in if j == 0 else block_out, block_out) for j in range(n_blocks)]
         )
-        self.attn = nn.ModuleList()
+        self.attn = nn.ModuleList([AttnBlock(block_out) for _ in range(n_blocks)] if attn else [])
+
+    def blocks(self, h):
+        for j, block in enumerate(self.block):
+            h = block(h)
+            if self.attn:
+                h = self.attn[j](h)
+        return h
+
+
+class _UpLevel(_Level):
+    def __init__(self, block_in: int, block_out: int, n_blocks: int, upsample: bool,
+                 attn: bool = False):
+        super().__init__(block_in, block_out, n_blocks, attn)
         self.upsample = Upsample(block_out) if upsample else None
 
 
-class _DownLevel(nn.Module):
-    def __init__(self, block_in: int, block_out: int, n_blocks: int, downsample: bool):
-        super().__init__()
-        self.block = nn.ModuleList(
-            [ResnetBlock(block_in if j == 0 else block_out, block_out) for j in range(n_blocks)]
-        )
-        self.attn = nn.ModuleList()
+class _DownLevel(_Level):
+    def __init__(self, block_in: int, block_out: int, n_blocks: int, downsample: bool,
+                 attn: bool = False):
+        super().__init__(block_in, block_out, n_blocks, attn)
         self.downsample = Downsample(block_out) if downsample else None
 
 
@@ -126,15 +147,15 @@ class Encoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         nm = len(cfg.ch_mult)
-        if cfg.attn_resolutions:
-            raise NotImplementedError("VAE attention at down-block resolutions")
         self.conv_in = Conv2d(cfg.in_channels, cfg.ch, 3, padding=1)
-        block_in = cfg.ch
+        block_in, res = cfg.ch, cfg.resolution
         levels = []
         for i, mult in enumerate(cfg.ch_mult):
             block_out = cfg.ch * mult
-            levels.append(_DownLevel(block_in, block_out, cfg.num_res_blocks, i != nm - 1))
+            levels.append(_DownLevel(block_in, block_out, cfg.num_res_blocks, i != nm - 1,
+                                     res in cfg.attn_resolutions))
             block_in = block_out
+            res //= 2 if i != nm - 1 else 1
         self.down = nn.ModuleList(levels)
         self.mid = _Mid(block_in)
         self.norm_out = Normalize(block_in)
@@ -144,8 +165,7 @@ class Encoder(nn.Module):
     def forward(self, x):
         h = self.conv_in(x.to(self.conv_in.weight.dtype))
         for level in self.down:
-            for block in level.block:
-                h = block(h)
+            h = level.blocks(h)
             if level.downsample is not None:
                 h = level.downsample(h)
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
@@ -158,15 +178,16 @@ class Decoder(nn.Module):
         self.cfg = cfg
         nm = len(cfg.ch_mult)
         block_in = cfg.ch * cfg.ch_mult[-1]
-        if cfg.attn_resolutions:
-            raise NotImplementedError("VAE attention at up-block resolutions")
+        res = cfg.resolution // 2 ** (nm - 1)
         self.conv_in = Conv2d(cfg.z_channels, block_in, 3, padding=1)
         self.mid = _Mid(block_in)
         levels: list[_UpLevel | None] = [None] * nm
         for i in reversed(range(nm)):
             block_out = cfg.ch * cfg.ch_mult[i]
-            levels[i] = _UpLevel(block_in, block_out, cfg.num_res_blocks + 1, i != 0)
+            levels[i] = _UpLevel(block_in, block_out, cfg.num_res_blocks + 1, i != 0,
+                                 res in cfg.attn_resolutions)
             block_in = block_out
+            res *= 2 if i != 0 else 1
         self.up = nn.ModuleList(levels)
         self.norm_out = Normalize(block_in)
         self.conv_out = Conv2d(block_in, cfg.out_channels, 3, padding=1)
@@ -176,8 +197,7 @@ class Decoder(nn.Module):
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
         for i in reversed(range(len(self.up))):
             level = self.up[i]
-            for block in level.block:
-                h = block(h)
+            h = level.blocks(h)
             if level.upsample is not None:
                 h = level.upsample(h)
         return self.conv_out(F.silu(self.norm_out(h)))
@@ -264,11 +284,15 @@ def encode_latents(vae: AutoencoderKL, x: torch.Tensor, scale: float) -> torch.T
     return mean.float() * float(scale)
 
 
+def to_uint8(img: torch.Tensor) -> torch.Tensor:
+    """Decoded images in [-1, 1] -> uint8 RGB: the tensor2vid normalisation
+    clip((x+1)/2) and quantisation."""
+    img = torch.clamp(img.float() * 0.5 + 0.5, 0.0, 1.0)
+    return torch.round(img * 255.0).to(torch.uint8)
+
+
 @torch.no_grad()
 def decode_uint8(vae: AutoencoderKL, z: torch.Tensor, scale: float) -> torch.Tensor:
     """Scaled latents ``(N, h, w, 4)`` -> uint8 RGB ``(N, H, W, 3)``: latent
-    unscale, decode, the tensor2vid normalisation clip((x+1)/2) and
-    quantisation."""
-    img = vae.decode(z * (1.0 / float(scale)))
-    img = torch.clamp(img.float() * 0.5 + 0.5, 0.0, 1.0)
-    return torch.round(img * 255.0).to(torch.uint8)
+    unscale, decode and ``to_uint8``."""
+    return to_uint8(vae.decode(z * (1.0 / float(scale))))

@@ -15,8 +15,12 @@ File formats:
   * **stable-lora** (ModelScope): ``<name>.lora_A`` (r, in) / ``<name>.lora_B``
     (out, r); merge is ``W += (B @ A) * alpha`` with the Conv3d temporal
     mean-collapse and optional bias deltas;
-  * **cloneofsimo / LVDM**: ``<name>.lora_down.weight`` (r, in) /
-    ``<name>.lora_up.weight`` (out, r).
+  * **cloneofsimo / LVDM** (VideoCrafter): ``<name>.lora_down.weight``
+    (r, in) / ``<name>.lora_up.weight`` (out, r); merge is
+    ``W += (up @ down) * scale`` (``merge_lvdm_lora``).
+
+``discover_loras`` finds the stable-lora files of a directory tree by their
+header's metadata tag.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from t2v_torch.core.config import CLIPTextConfig, ModelScopeUNetConfig
-from t2v_torch.io.safetensors_io import save_safetensors
+from t2v_torch.io.safetensors_io import read_safetensors_metadata, save_safetensors
 from t2v_torch.models.modelscope_unet import BlockDesc, build_topology
 
 METADATA_TAG = "stable_lora_text_to_video"
@@ -246,3 +250,67 @@ def merge_stable_lora(
             db = torch.from_numpy(np.array(lora_sd[f"{name}.bias"], np.float32)).to(bias.device)
             new[bias_name] = (bias.float() + sign * alpha * db).to(bias.dtype)
     return new, skipped
+
+
+def _f32(x) -> torch.Tensor:
+    """A file's factor (numpy, or a torch tensor of any float dtype) as a
+    float32 CPU tensor."""
+    if torch.is_tensor(x):
+        return x.detach().to("cpu", torch.float32)
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def merge_lvdm_lora(
+    params: Mapping[str, torch.Tensor],
+    lora_sd: Mapping,
+    module_index: ModuleIndex,
+    scale: float = 1.0,
+) -> tuple[dict[str, torch.Tensor], list[str]]:
+    """Merge a cloneofsimo / LVDM LoRA state dict (numpy or torch factors)
+    into a state dict: ``W += (up @ down) * scale`` in float32, cast back to
+    W's dtype; conv-shaped factors squeeze their trailing singleton dims.
+    Returns (new state dict, skipped module names): a name with no
+    ``lora_down`` partner, or absent from the index or the state dict."""
+    new = dict(params)
+    skipped: list[str] = []
+    up_sfx, down_sfx = ".lora_up.weight", ".lora_down.weight"
+    downs = {k[: -len(down_sfx)]: v for k, v in lora_sd.items() if k.endswith(down_sfx)}
+    for key, up in lora_sd.items():
+        if not key.endswith(up_sfx):
+            continue
+        name = key[: -len(up_sfx)]
+        if name not in downs or name not in module_index or module_index[name][0] not in new:
+            skipped.append(name)
+            continue
+        pname, kind = module_index[name]
+        w = new[pname]
+        u, d = _f32(up), _f32(downs[name])
+        while u.dim() > 2:
+            u = u.squeeze(-1)
+        while d.dim() > 2:
+            d = d.squeeze(-1)
+        delta = _delta_to_weight(((u @ d) * scale).to(w.device), kind, w.shape)
+        new[pname] = (w.float() + delta).to(w.dtype)
+    return new, skipped
+
+
+def discover_loras(lora_dir: str) -> list[dict]:
+    """Every stable-lora ``.safetensors`` file under ``lora_dir`` (sorted,
+    recursive), known by the metadata tag in its header; only the header is
+    read. Returns each file's metadata with its ``path`` and ``lora_name``
+    (the file name without extension) added; a file whose header cannot be
+    read is passed over."""
+    import glob
+    import os
+
+    found = []
+    for path in sorted(glob.glob(os.path.join(lora_dir, "**", "*.safetensors"), recursive=True)):
+        try:
+            metadata = read_safetensors_metadata(path)
+        except (OSError, ValueError):
+            continue
+        if metadata is not None and METADATA_TAG in metadata:
+            metadata = dict(metadata, path=path,
+                            lora_name=os.path.splitext(os.path.basename(path))[0])
+            found.append(metadata)
+    return found

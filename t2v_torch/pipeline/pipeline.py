@@ -20,7 +20,8 @@ torch checkpoints and the BPE vocab) or a directory the trainer saved
 switches to another directory on demand. ``release_aux`` / ``reload_aux``
 drop and re-read the VAE and text tower between requests ("Main Model
 Only"); ``apply_stable_lora`` merges a stable-lora file into the UNet and
-the text tower.
+the text tower; ``text_encoder.embedding_db`` takes textual-inversion
+embeddings; ``decode_tile`` decodes a large latent on overlapping tiles.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ from t2v_torch.diffusion.sampling import sample_loop
 from t2v_torch.diffusion.schedules import DiffusionSchedule
 from t2v_torch.io import convert, train_state
 from t2v_torch.models.modelscope_unet import UNetSD
-from t2v_torch.models.vae import AutoencoderKL, decode_uint8, encode_latents
+from t2v_torch.models.vae import AutoencoderKL, decode_uint8, encode_latents, to_uint8
+from t2v_torch.models.vae_tiled import decode_spatial_tiled
 from t2v_torch.pipeline.keyframes import KeyFrameSeries
 from t2v_torch.text.clip import CLIPTextTransformer
 from t2v_torch.text.encoder import TextEncoder
@@ -97,19 +99,28 @@ def decode_chunk_frames(n: int, h_img: int, w_img: int) -> int:
 
 @torch.no_grad()
 def decode_latents(vae: AutoencoderKL, vae_cfg: VAEConfig, latents: torch.Tensor,
-                   scale_factor: float = SCALE_FACTOR) -> np.ndarray:
+                   scale_factor: float = SCALE_FACTOR, tile: int | None = None,
+                   overlap: int = 16) -> np.ndarray:
     """(F, h, w, 4) scaled latents -> (F, H, W, 3) uint8 RGB, decoded in
-    frame chunks that bound the decoder's activation memory."""
+    frame chunks that bound the decoder's activation memory. With ``tile``
+    and a latent wider or taller than it, each chunk decodes on overlapping
+    ``tile``-pixel latent tiles (``models/vae_tiled.py``), blended in
+    float32 and then normalised as the untiled decode is."""
     up = _spatial_scale(vae_cfg)
     n = latents.shape[0]
     step_f = decode_chunk_frames(n, latents.shape[1] * up, latents.shape[2] * up)
+    if tile and (latents.shape[1] > tile or latents.shape[2] > tile):
+        decode = lambda z: to_uint8(decode_spatial_tiled(
+            vae.decode, z / scale_factor, tile=tile, overlap=overlap, upscale=up))
+    else:
+        decode = lambda z: decode_uint8(vae, z, scale_factor)
     outs = []
     for i in range(0, n, step_f):
         chunk = latents[i : i + step_f]
         pad = step_f - chunk.shape[0] if n > step_f else 0
         if pad:
             chunk = torch.cat([chunk, chunk.new_zeros((pad, *chunk.shape[1:]))])
-        img = decode_uint8(vae, chunk, scale_factor)
+        img = decode(chunk)
         outs.append(img[: img.shape[0] - pad].cpu().numpy())
     return np.concatenate(outs, axis=0)
 
@@ -194,6 +205,9 @@ class ModelScopePipeline:
     schedule: DiffusionSchedule
     device: torch.device
     model_dir: str | None = None  # where reload_aux re-reads the VAE and text tower
+    # spatial tiling of the decode (latent pixels a tile; None = off)
+    decode_tile: int | None = None
+    decode_tile_overlap: int = 16
 
     @staticmethod
     def configs(unet_cfg: ModelScopeUNetConfig | None, tokenizer: CLIPTokenizer,
@@ -393,8 +407,10 @@ class ModelScopePipeline:
         return compute_latents(self.vae, frames_rgb, SCALE_FACTOR, self.device)
 
     def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
-        """(F, h, w, 4) scaled latents -> (F, H, W, 3) uint8 RGB."""
-        return decode_latents(self.vae, self.vae_cfg, latents, SCALE_FACTOR)
+        """(F, h, w, 4) scaled latents -> (F, H, W, 3) uint8 RGB, on
+        ``decode_tile``-pixel tiles when set and the latent exceeds it."""
+        return decode_latents(self.vae, self.vae_cfg, latents, SCALE_FACTOR,
+                              self.decode_tile, self.decode_tile_overlap)
 
     def build_inpainting_inputs(
         self,
@@ -536,22 +552,31 @@ def _merge_lora(module: nn.Module, lora_sd, alpha: float, index, undo: bool) -> 
     return skipped
 
 
-_PIPELINE_CACHE: dict[tuple, ModelScopePipeline] = {}
+# the one loaded pipeline, of either family: (family, dir, dtype, device) -> pipeline
+_PIPELINE_CACHE: dict[tuple, object] = {}
 
 
-def load_pipeline(model_dir: str, policy: Policy = Policy.bf16(), keep_in_vram: bool = True,
-                  device: torch.device | str = "cuda") -> ModelScopePipeline:
-    """Cached loader with model hot-switch semantics: a directory other
-    than the cached one drops the cached pipeline before loading the new
-    one, so two never hold the card at once. ``keep_in_vram=False`` skips
-    caching: the pipeline lives only for the caller's run."""
-    key = (os.path.abspath(model_dir), policy.param_dtype, str(torch.device(device)))
+def cached_pipeline(family: str, from_model_dir, model_dir: str, policy: Policy,
+                    keep_in_vram: bool, device: torch.device | str):
+    """Cached loader with model hot-switch semantics: a key other than the
+    cached one drops the cached pipeline, of either family, before
+    ``from_model_dir`` loads the new one, so two never hold the card at
+    once. ``keep_in_vram=False`` skips caching: the pipeline lives only for
+    the caller's run."""
+    key = (family, os.path.abspath(model_dir), policy.param_dtype, str(torch.device(device)))
     if key in _PIPELINE_CACHE:
         return _PIPELINE_CACHE[key]
     _PIPELINE_CACHE.clear()
     if torch.device(device).type == "cuda" and torch.cuda.is_available():
         torch.cuda.empty_cache()
-    pipe = ModelScopePipeline.from_model_dir(model_dir, policy, device=device)
+    pipe = from_model_dir(model_dir, policy, device=device)
     if keep_in_vram:
         _PIPELINE_CACHE[key] = pipe
     return pipe
+
+
+def load_pipeline(model_dir: str, policy: Policy = Policy.bf16(), keep_in_vram: bool = True,
+                  device: torch.device | str = "cuda") -> ModelScopePipeline:
+    """``ModelScopePipeline.from_model_dir`` through ``cached_pipeline``."""
+    return cached_pipeline("modelscope", ModelScopePipeline.from_model_dir, model_dir, policy,
+                           keep_in_vram, device)

@@ -13,12 +13,12 @@ reference's ``render.run`` + ``process_modelscope`` orchestration):
   * PNG frame dump + ``args.txt`` infotext + mp4 stitch with metadata +
     base64 data URLs.
 
-It runs one device's serial loop. Sharded sampling (``dp/tp/sp_shards`` >
-1) is refused until the multi-GPU slice; so are VideoCrafter loading by
-name, its depth adapter and its mask inpainting, until the VideoCrafter
-slice. A ``VideoCrafterPipeline`` the caller passes in answers through its
-own ``infer``, with no step callback (interrupt and skip act between its
-batches).
+It runs one device's serial loop. A VideoCrafter model loads by name
+(``load_vc_pipeline``; ``'<videocrafter>'`` implies the family) and answers
+through its own ``infer``, with no step callback (interrupt and skip act
+between its batches). Sharded sampling (``dp/tp/sp_shards`` > 1) is refused
+until the multi-GPU slice; VideoCrafter's depth adapter and mask inpainting
+until the VideoCrafter branches slice.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from t2v_torch.core.state import InterruptedException, JobState, SkippedExceptio
 from t2v_torch.core.state import state as default_state
 from t2v_torch.media.video import ffmpeg_stitch_video, vid2frames, video_to_data_url
 from t2v_torch.pipeline.pipeline import ModelScopePipeline, load_pipeline
+from t2v_torch.pipeline.videocrafter import load_vc_pipeline
 
 
 @dataclass
@@ -91,7 +92,7 @@ def _refuse_later_slices(*, adapter_ckpt, adapter_video, depth_ckpt, depth_estim
     if asked:
         raise NotImplementedError(
             f"run: {', '.join(asked)}: the VideoCrafter depth adapter is not ported yet "
-            "(the VideoCrafter slice)")
+            "(the VideoCrafter branches slice)")
 
 
 def _prepare_vid2vid(pipe: ModelScopePipeline, args: T2VArgs):
@@ -146,9 +147,10 @@ def run(
 ) -> RunResult:
     """Answer ``args.batch_count`` batches and write their outputs under
     ``outdir``. Without ``pipe`` the model directory comes from
-    ``args.model`` (``_resolve_model_dir``) through ``load_pipeline`` on
-    ``device`` (bf16 on the card, float32 on the CPU); ``args.model=None``
-    reuses the warm pipe of the last run.
+    ``args.model`` (``_resolve_model_dir``) through ``load_pipeline``, or
+    ``load_vc_pipeline`` for a VideoCrafter request, on ``device`` (bf16 on
+    the card, float32 on the CPU); ``args.model=None`` reuses the warm pipe
+    of the last run.
 
     error_video_on_failure=True reproduces the reference UI behaviour: any
     generation exception yields the error-placeholder data URL instead of
@@ -194,26 +196,28 @@ def run(
             # warm-pipe quirk: an omitted model with a loaded pipe reuses
             # the previous model instead of the default
             pipe = _warm_pipe
-        elif args.model_type == "VideoCrafter" or args.model == "<videocrafter>":
-            raise NotImplementedError(
-                "run: loading VideoCrafter by name (load_vc_pipeline) is not ported yet (the "
-                "VideoCrafter slice); pass a VideoCrafterPipeline as pipe=")
         else:
             # drop the warm pipe first, so that a hot switch never holds
             # two models on the card
             _warm_pipe = None
             # bf16 on the card; the CPU runs float32, as the CLIs do
             policy = Policy.fp32() if torch.device(device).type == "cpu" else Policy.bf16()
-            pipe = load_pipeline(
-                _resolve_model_dir(args.model or "<modelscope>"), policy,
-                keep_in_vram=retention != "none", device=device,
-            )
+            keep = retention != "none"
+            # '<videocrafter>' implies the family even when model_type was
+            # not set (the UI and the API may pass only the model name)
+            if args.model_type == "VideoCrafter" or args.model == "<videocrafter>":
+                model = args.model or "<videocrafter>"
+                model_dir = _resolve_model_dir(
+                    "<videocrafter>" if model == "<modelscope>" else model)
+                pipe = load_vc_pipeline(model_dir, policy, keep_in_vram=keep, device=device)
+            else:
+                pipe = load_pipeline(_resolve_model_dir(args.model or "<modelscope>"), policy,
+                                     keep_in_vram=keep, device=device)
     _warm_pipe = pipe if retention != "none" else None
     is_ms = isinstance(pipe, ModelScopePipeline)
-    if is_ms:
-        # a warm pipe retained under 'Main Model Only' comes back without
-        # its VAE and text tower: read them again (a no-op when resident)
-        pipe.reload_aux()
+    # a warm pipe retained under 'Main Model Only' comes back without its
+    # VAE and text tower: read them again (a no-op when resident)
+    pipe.reload_aux()
 
     job_state.reset()
     result = RunResult()
@@ -243,7 +247,7 @@ def run(
                 if not is_ms:
                     raise NotImplementedError(
                         "run: VideoCrafter mask inpainting is not ported yet (the "
-                        "VideoCrafter slice)")
+                        "VideoCrafter branches slice)")
                 import cv2
 
                 img = cv2.cvtColor(cv2.imread(args.inpainting_image), cv2.COLOR_BGR2RGB)
@@ -293,8 +297,9 @@ def run(
         return result
     finally:
         # 'Main Model Only': retain the warm UNet, drop the VAE and text
-        # tower until the next request, also when infer or a save raised
-        if retention == "model" and is_ms:
+        # tower until the next request (of either family), also when infer
+        # or a save raised
+        if retention == "model":
             pipe.release_aux()
 
 

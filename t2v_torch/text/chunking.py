@@ -11,20 +11,21 @@ wrapped with BOS/EOS, where
     (:203-214; A1111 default backtrack = 20);
   * each id carries an emphasis multiplier (:219-223);
   * SD2-style padding replaces everything after the first EOS with
-    id_pad=0 (process_tokens :404-408).
+    id_pad=0 (process_tokens :404-408);
+  * textual-inversion embeddings occupy runs of placeholder ids with
+    their splice position recorded (find_embedding_at_position :219-234).
 
 Implementation shape: each prompt line is first flattened into a stream of
-events (plain id / break marker), then a ``_RowPacker`` folds the stream
-into sealed 77-wide rows. The packer owns all boundary bookkeeping; the
-event pass owns parsing (emphasis weights). Textual-inversion embedding
-splices (find_embedding_at_position :219-234) are not part of the port
-yet.
+events (plain id / embedding splice / break marker), then a ``_RowPacker``
+folds the stream into sealed 77-wide rows. The packer owns all boundary
+bookkeeping; the event pass owns parsing concerns (emphasis weights,
+embedding lookup).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Iterator
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
@@ -34,26 +35,43 @@ from t2v_torch.text.tokenizer import CLIPTokenizer
 CHUNK_LENGTH = 75
 DEFAULT_COMMA_BACKTRACK = 20
 
+EmbeddingLookup = Callable[[list[int], int], tuple[Optional[np.ndarray], int]]
+
 
 @dataclass
 class PromptChunk:
     tokens: list[int] = field(default_factory=list)
     multipliers: list[float] = field(default_factory=list)
+    # (position, embedding_matrix) pairs for textual inversion
+    fixes: list[tuple[int, np.ndarray]] = field(default_factory=list)
 
 
 _BREAK = ("break",)
 
 
-def _event_stream(line: str, tokenizer: CLIPTokenizer, enable_emphasis: bool) -> Iterator[tuple]:
-    """Flatten a prompt line into packer events: ("id", token_id, weight)
-    | ("break",)."""
+def _event_stream(
+    line: str,
+    tokenizer: CLIPTokenizer,
+    enable_emphasis: bool,
+    embedding_db: Optional[EmbeddingLookup],
+) -> Iterator[tuple]:
+    """Flatten a prompt line into packer events:
+    ("id", token_id, weight) | ("emb", matrix, weight) | ("break",)."""
     segments = parse_prompt_attention(line) if enable_emphasis else [[line, 1.0]]
     for text, weight in segments:
         if text == "BREAK" and weight == -1:
             yield _BREAK
             continue
-        for token_id in tokenizer.encode(text):
-            yield ("id", token_id, weight)
+        ids = tokenizer.encode(text)
+        pos = 0
+        while pos < len(ids):
+            spliced, consumed = (None, 0) if embedding_db is None else embedding_db(ids, pos)
+            if spliced is None:
+                yield ("id", ids[pos], weight)
+                pos += 1
+            else:
+                yield ("emb", spliced, weight)
+                pos += consumed
 
 
 class _RowPacker:
@@ -72,6 +90,7 @@ class _RowPacker:
         self.rows: list[PromptChunk] = []
         self.ids: list[int] = []
         self.weights: list[float] = []
+        self.fixes: list[tuple[int, np.ndarray]] = []
         self.comma_at = -1  # index of the newest comma in the open row
         self.id_total = 0
 
@@ -82,9 +101,10 @@ class _RowPacker:
         row = PromptChunk(
             tokens=[self.bos] + self.ids + [self.eos] * (short + 1),
             multipliers=[1.0] + self.weights + [1.0] * (short + 1),
+            fixes=self.fixes,
         )
         self.rows.append(row)
-        self.ids, self.weights = [], []
+        self.ids, self.weights, self.fixes = [], [], []
         self.comma_at = -1
 
     def _migrate_past_comma(self) -> None:
@@ -111,12 +131,22 @@ class _RowPacker:
         self.ids.append(token_id)
         self.weights.append(weight)
 
+    def _push_embedding(self, matrix: np.ndarray, weight: float) -> None:
+        rows = int(matrix.shape[0])
+        if len(self.ids) + rows > CHUNK_LENGTH:
+            self._seal()
+        self.fixes.append((len(self.ids), matrix))
+        self.ids += [0] * rows
+        self.weights += [weight] * rows
+
     def feed(self, events: Iterator[tuple]) -> None:
         for ev in events:
             if ev[0] == "break":
                 self._seal()
-            else:
+            elif ev[0] == "id":
                 self._push_id(ev[1], ev[2])
+            else:
+                self._push_embedding(ev[1], ev[2])
 
     def finish(self) -> tuple[list[PromptChunk], int]:
         if self.ids or not self.rows:
@@ -130,10 +160,13 @@ def tokenize_line(
     *,
     enable_emphasis: bool = True,
     comma_backtrack: int = DEFAULT_COMMA_BACKTRACK,
+    embedding_db: Optional[EmbeddingLookup] = None,
 ) -> tuple[list[PromptChunk], int]:
-    """Returns (chunks, token_count). Every chunk is 77 wide (BOS+75+EOS)."""
+    """Returns (chunks, token_count). Every chunk is 77 wide (BOS+75+EOS).
+    ``embedding_db(ids, pos)`` returns (matrix, ids consumed) for a
+    textual-inversion name starting at ``pos``, or (None, 0)."""
     packer = _RowPacker(tokenizer, comma_backtrack)
-    packer.feed(_event_stream(line, tokenizer, enable_emphasis))
+    packer.feed(_event_stream(line, tokenizer, enable_emphasis, embedding_db))
     return packer.finish()
 
 

@@ -89,7 +89,9 @@ class _Transformer(nn.Module):
 
 class CLIPTextTransformer(nn.Module):
     """forward(tokens (B, 77) int) -> (B, 77, width) hidden states after
-    ``ln_final`` at the configured depth."""
+    ``ln_final`` at the configured depth. ``input_embeddings`` (B, 77,
+    width) replaces the token lookup: the textual-inversion path, where the
+    caller spliced embedding rows into the looked-up ones."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
@@ -103,8 +105,12 @@ class CLIPTextTransformer(nn.Module):
     def effective_layers(self) -> int:
         return self.cfg.layers - (1 if self.cfg.layer == "penultimate" else 0)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.token_embedding(tokens)
+    @property
+    def token_embedding_weight(self) -> torch.Tensor:
+        return self.token_embedding.weight
+
+    def forward(self, tokens: torch.Tensor, input_embeddings: torch.Tensor | None = None) -> torch.Tensor:
+        x = self.token_embedding(tokens) if input_embeddings is None else input_embeddings
         s = x.shape[1]
         x = x + self.positional_embedding[None, :s].to(x.dtype)
         mask = _causal_mask(s, x.device)
@@ -169,7 +175,8 @@ class _HFTextModel(nn.Module):
 class HFCLIPTextModel(nn.Module):
     """forward(tokens (B, 77) int) -> (B, 77, width): the last hidden state
     after ``final_layer_norm`` (a "penultimate" config keeps one block
-    fewer, as the OpenCLIP tower does)."""
+    fewer, as the OpenCLIP tower does). ``input_embeddings`` as in
+    ``CLIPTextTransformer``."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
@@ -177,9 +184,13 @@ class HFCLIPTextModel(nn.Module):
         n_layers = cfg.layers - (1 if cfg.layer == "penultimate" else 0)
         self.text_model = _HFTextModel(cfg, n_layers)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    @property
+    def token_embedding_weight(self) -> torch.Tensor:
+        return self.text_model.embeddings.token_embedding.weight
+
+    def forward(self, tokens: torch.Tensor, input_embeddings: torch.Tensor | None = None) -> torch.Tensor:
         tm = self.text_model
-        x = tm.embeddings.token_embedding(tokens)
+        x = tm.embeddings.token_embedding(tokens) if input_embeddings is None else input_embeddings
         s = x.shape[1]
         x = x + tm.embeddings.position_embedding.weight[None, :s].to(x.dtype)
         mask = _causal_mask(s, x.device)

@@ -9,7 +9,8 @@ plain state dict), ``VQGAN_autoencoder.pth`` (under ``state_dict`` with
 ``open_clip_pytorch_model.bin`` (with its visual tower's and
 ``logit_scale`` keys and the last block, which the penultimate-layer tower
 does not use) and the repo's small BPE merge list under the published
-vocab name.
+vocab name. ``write_vc_dir`` writes a VideoCrafter directory: a Lightning
+``model.ckpt`` beside its ``model_config.yaml`` and the vocab.
 """
 
 import dataclasses
@@ -19,8 +20,16 @@ from pathlib import Path
 
 import torch
 
-from t2v_torch.core.config import CLIPTextConfig, ModelScopeUNetConfig, VAEConfig
+from t2v_torch.core.config import (
+    CLIPTextConfig,
+    ModelScopeUNetConfig,
+    VAEConfig,
+    VideoCrafterUNetConfig,
+)
+from t2v_torch.io.convert_vc import base_t2v_yaml, lightning_state_dict
 from t2v_torch.pipeline.pipeline import ModelScopePipeline
+from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
+from t2v_torch.text.tokenizer import CLIPTokenizer
 
 VOCAB = Path(__file__).resolve().parent / "data" / "tokenizer_merges.txt.gz"
 UNET_CFG = ModelScopeUNetConfig().tiny()
@@ -75,3 +84,89 @@ def write_model_dir(pipe: ModelScopePipeline, out: Path, unet_dtype=torch.float3
     torch.save(clip, out / "open_clip_pytorch_model.bin")
     shutil.copy(VOCAB, out / "bpe_simple_vocab_16e6.txt.gz")
     return out
+
+
+# ---------------------------------------------------------------------------
+# VideoCrafter: a Lightning ``model.ckpt`` beside its ``model_config.yaml``
+
+VC_UNET_CFG = dataclasses.replace(VideoCrafterUNetConfig().tiny(), context_dim=768)
+
+
+def vc_source_pipeline(seed: int = 0) -> VideoCrafterPipeline:
+    """A seeded float32 CPU VideoCrafter pipeline that a published-layout
+    checkpoint can carry: the tiny UNet at CLIP-L's width, the tiny VAE and
+    a one-layer CLIP-L tower (width 768, 12 heads, the published
+    49,408-row embedding, as both packages' loaders build it); the vocab
+    file's tokenizer; zero leaves perturbed."""
+    pipe = VideoCrafterPipeline.random_init(
+        VC_UNET_CFG, seed=seed, device="cpu", small_aux=True,
+        clip_cfg=dataclasses.replace(CLIPTextConfig.clip_l_14(), layers=1))
+    pipe.tokenizer = CLIPTokenizer.from_vocab_file(str(VOCAB))
+    with torch.no_grad():
+        for mod in (pipe.unet, pipe.vae, pipe.clip):
+            for p in mod.parameters():
+                if not p.any():
+                    p.add_(0.01)
+    return pipe
+
+
+def small_vc_pipeline(seed: int = 0) -> VideoCrafterPipeline:
+    """The tiny VideoCrafter pipeline of ``random_init`` (two-layer,
+    32-wide text tower), with the vocab file's tokenizer and the published
+    49,408-row embedding, so that a directory the trainer saves from it
+    loads with its own vocab."""
+    cfg = VideoCrafterUNetConfig().tiny()
+    clip_cfg = dataclasses.replace(CLIPTextConfig.clip_l_14(), width=cfg.context_dim, layers=2,
+                                   heads=2)
+    pipe = VideoCrafterPipeline.random_init(cfg, seed=seed, device="cpu", clip_cfg=clip_cfg)
+    pipe.tokenizer = CLIPTokenizer.from_vocab_file(str(VOCAB))
+    return pipe
+
+
+def vc_model_config(cfg: VideoCrafterUNetConfig, vae_cfg: VAEConfig, fps: bool = False) -> str:
+    """``model_config.yaml`` in the published ``base_t2v`` layout, with a
+    ``cond_stage2_config`` when ``fps``."""
+    text = base_t2v_yaml(cfg, vae_cfg)
+    if fps:
+        text += """
+    cond_stage2_config:
+      target: lvdm.models.modules.condition_modules.FPSEmbedder  # 'fps' conditioning
+"""
+    return text
+
+
+def write_vc_dir(pipe: VideoCrafterPipeline, out: Path, fps: bool = False) -> Path:
+    """A VideoCrafter directory in the published layout: ``model.ckpt``
+    (float32, Lightning: ``lightning_state_dict`` and an EMA key in
+    ``state_dict``, plus ``global_step`` / ``epoch``), ``model_config.yaml``
+    and the vocab."""
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "model_config.yaml").write_text(vc_model_config(pipe.cfg, pipe.vae_cfg, fps))
+    sd = lightning_state_dict(pipe.unet, pipe.vae, pipe.clip)
+    sd["model_ema.decay"] = torch.tensor(0.9999)
+    torch.save({"state_dict": sd, "global_step": 7, "epoch": 1}, out / "model.ckpt")
+    shutil.copy(VOCAB, out / "bpe_simple_vocab_16e6.txt.gz")
+    return out
+
+
+def write_clip_dir(root: Path, n_frames: int = 12, size=(40, 48)) -> Path:
+    """A one-clip WebVid directory (``videos/1.mp4`` and ``meta.csv``) for
+    the trainer; needs ``cv2``."""
+    import csv
+
+    import cv2
+    import numpy as np
+
+    (root / "videos").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    h, w = size
+    writer = cv2.VideoWriter(str(root / "videos" / "1.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 8,
+                             (w, h))
+    for _ in range(n_frames):
+        writer.write(rng.integers(0, 255, (h, w, 3), dtype=np.uint8))
+    writer.release()
+    with open(root / "meta.csv", "w", newline="") as f:
+        wr = csv.writer(f)
+        wr.writerow(["videoid", "name", "page_dir"])
+        wr.writerow(["1", "a cat", ""])
+    return root

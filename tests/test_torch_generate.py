@@ -169,14 +169,20 @@ def test_output_options_and_metadata_reader(tiny_pipe, tmp_path, warm_pipe_reset
     assert read_mp4_metadata_comment(str(tmp_path / "custom" / "out.mp4")) is None
 
 
-def test_refusals_name_what_and_which_slice(tmp_path, tiny_pipe, warm_pipe_reset):
+def test_refusals_name_what_and_which_slice(tmp_path, tiny_pipe, warm_pipe_reset, monkeypatch):
+    from _torch_model_dir import VOCAB, small_vc_pipeline
     from t2v_torch.cli.generate import main
     from t2v_torch.core.config import VideoCrafterUNetConfig
+    from t2v_torch.io import train_state
+    from t2v_torch.pipeline import pipeline
     from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
 
     cli_cases = [
-        (["--embeddings-dir", "e"], "--embeddings-dir: textual inversion"),
-        (["--model-type", "VideoCrafter", "--model-dir", "m"], "VideoCrafter slice"),
+        (["--model-type", "VideoCrafter", "--embeddings-dir", "e"],
+         "--embeddings-dir: textual inversion splices into the ModelScope text encoder"),
+        (["--model-type", "VideoCrafter", "--model-dir", "m", "--vc-sample-type", "ddpm",
+          "--uc-type", "cfg_ours"],
+         "--vc-sample-type ddpm: .*VideoCrafter branches slice.*--uc-type: "),
         (["--adapter-ckpt", "a"], "--adapter-ckpt: the depth adapter"),
         (["--adapter-video", "v"], "--adapter-video: the depth adapter"),
         (["--depth-ckpt", "d"], "--depth-ckpt: the depth adapter"),
@@ -198,9 +204,21 @@ def test_refusals_name_what_and_which_slice(tmp_path, tiny_pipe, warm_pipe_reset
     ]:
         with pytest.raises(NotImplementedError, match=match):
             run(args, out, pipe=tiny_pipe, **kw, **extra)
-    with pytest.raises(NotImplementedError, match="load_vc_pipeline"):
-        run(args.replace(model_type="VideoCrafter"), out, **kw)
-    # a VideoCrafter pipeline handed in answers its default branch ...
+    # VideoCrafter loads by name ('<videocrafter>' implies the family) and
+    # answers its default branch ...
+    vc = small_vc_pipeline()
+    train_state.save_weights(
+        str(tmp_path / "models" / "VideoCrafter"), unet_params=dict(vc.unet.named_parameters()),
+        vae=vc.vae, clip=vc.clip, unet_cfg=vc.cfg, vae_cfg=vc.vae_cfg, clip_cfg=vc.clip_cfg,
+        model_family="videocrafter", tokenizer_vocab=str(VOCAB))
+    monkeypatch.setenv("T2V_MODELS_ROOT", str(tmp_path / "models"))
+    try:
+        res = run(args.replace(model="<videocrafter>"), out, device="cpu", **kw)
+        loaded = warm_pipe_reset._warm_pipe
+        assert isinstance(loaded, VideoCrafterPipeline) and loaded.model_dir is not None
+        assert "Model: VideoCrafter" in res.infotexts[0]
+    finally:
+        pipeline._PIPELINE_CACHE.clear()
     vc = VideoCrafterPipeline.random_init(VideoCrafterUNetConfig().tiny(), device="cpu")
     res = run(args, out, pipe=vc, **kw)
     assert "Model: VideoCrafter" in res.infotexts[0]

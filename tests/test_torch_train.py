@@ -43,6 +43,7 @@ from t2v_torch.models.modelscope_unet import UNetSD
 from t2v_torch.parallel import train as ttrain
 from t2v_torch.pipeline import lora as tlora
 from t2v_torch.pipeline.pipeline import init_weights
+from _torch_model_dir import write_clip_dir
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = ModelScopeUNetConfig().tiny()
@@ -324,31 +325,12 @@ def test_train_state_save_restore_gives_the_same_next_step(setup, tmp_path, mode
             train_state.restore_train_state(str(out), bad)
 
 
-def _write_clip(root, n_frames=12, size=(40, 48)):
-    import csv
-
-    import cv2
-
-    (root / "videos").mkdir(parents=True)
-    rng = np.random.default_rng(0)
-    h, w = size
-    writer = cv2.VideoWriter(str(root / "videos" / "1.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 8,
-                             (w, h))
-    for _ in range(n_frames):
-        writer.write(rng.integers(0, 255, (h, w, 3), dtype=np.uint8))
-    writer.release()
-    with open(root / "meta.csv", "w", newline="") as f:
-        wr = csv.writer(f)
-        wr.writerow(["videoid", "name", "page_dir"])
-        wr.writerow(["1", "a cat", ""])
-
-
 def test_webvid_arrays_equal_the_jax_datasets(tmp_path):
     pytest.importorskip("cv2")
     from t2v.data.webvid import WebVidDataset as JDataset
     from t2v_torch.data.webvid import WebVidDataset
 
-    _write_clip(tmp_path)
+    write_clip_dir(tmp_path)
     kw = dict(video_length=4, resolution=(32, 32), frame_stride=2, seed=5, trigger_word=" sks")
     mine, theirs = WebVidDataset(str(tmp_path), **kw), JDataset(str(tmp_path), **kw)
     assert len(mine) == len(theirs) == 1
@@ -369,7 +351,7 @@ def test_cli_trains_two_steps_on_the_cpu_and_resumes(tmp_path, capsys, extra):
     from t2v_torch.cli import train as cli
     from t2v_torch.io.safetensors_io import load_safetensors
 
-    _write_clip(tmp_path / "data")
+    write_clip_dir(tmp_path / "data")
     out = tmp_path / "out"
     argv = ["--data-dir", str(tmp_path / "data"), "--tiny", "--device", "cpu", "--batch-size", "1",
             "--frames", "4", "--resolution", "32", "--log-every", "1", "--save-every", "2",
@@ -407,7 +389,7 @@ def test_cli_fine_tunes_a_model_dir_and_saves_a_loadable_one(tmp_path, capsys):
     from t2v_torch.core.dtypes import Policy
     from t2v_torch.pipeline.pipeline import ModelScopePipeline
 
-    _write_clip(tmp_path / "data")
+    write_clip_dir(tmp_path / "data")
     src = source_pipeline()
     model = train_state.save_weights(
         str(tmp_path / "model"), unet_params=dict(src.unet.named_parameters()), vae=src.vae,
@@ -432,8 +414,10 @@ def test_cli_fine_tunes_a_model_dir_and_saves_a_loadable_one(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--sp", "2"], "--sp/--tp"), (["--tp", "2"], "--sp/--tp"),
-    (["--model-type", "VideoCrafter", "--model-dir", "x"], "--model-dir/--vc-ckpt"),
-    (["--vc-ckpt", "x"], "--model-dir/--vc-ckpt"),
+    (["--model-type", "VideoCrafter", "--model-dir", "x", "--vc-ckpt", "y"],
+     "--vc-ckpt: a VideoCrafter checkpoint, taken with --model-type VideoCrafter and without "
+     "--model-dir"),
+    (["--vc-ckpt", "x"], "--vc-ckpt: a VideoCrafter checkpoint, taken with --model-type"),
     (["--model-type", "VideoCrafter", "--lora-rank", "2", "--tiny", "--device", "cpu"],
      "ModelScope only"),
     (["--tiny", "--device", "cpu", "--resume"], "no train state"),
