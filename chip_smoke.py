@@ -23,8 +23,10 @@ and prints no result line):
    kernels, their times before the redesign, and the temporal-conv layer's
    split into activation pass and GEMM and the flash (forward and both
    backward), cross-attention and rel-pos kernels' device time (torch.profiler),
-   with the wrappers' host time; the flash backward's two launches at each
-   training-path shape must give bit-identical gradients;
+   with the wrappers' host time; every kernel's device time at its dominant
+   shape goes beside its CUDA-event time into the JSON line (``device_ms``);
+   the flash backward's two launches at each training-path shape must give
+   bit-identical gradients;
 3. answer one request with a small ModelScope pipeline and one with a small
    VideoCrafter pipeline whose widths every kernel takes, in bf16 on the
    card, and hold their latents and frames against the same weights in
@@ -81,12 +83,24 @@ and prints no result line):
    weights did not, the EMA follows its rule, and the launch counts equal
    the topology's (5 flash backward pairs per step); print seconds per
    step, peak memory, and one profiled step's device time and idle share;
-9. print the card's name and power limit, one ``{"kernels": [...]}`` line,
-   and as the last line ``{"ok": true, "device": {...}}``.
+9. VideoCrafter's other branches (``drive_vcbranches``): the DDPM chain on
+   the small pipeline (bf16 on the card against float32 on the CPU, step by
+   step), a tiny MidasSmall and Adapter likewise, one masked
+   temporal-attention call (plain on the card, no rel-pos launch); then at
+   full width the ``uc_type`` variants, DPM++ 2M whole and windowed
+   (bit-identical), LVDM mask inpainting through ``run`` (the kept frame
+   holds the source), an FPS-conditioned ``model.ckpt`` through
+   ``load_vc_pipeline`` (8 and 24 frames a second differ, none raises), and
+   the depth adapter with MiDaS from files through ``run`` and the CLI;
+   every request's launches against the topology's;
+10. print the card's name and power limit, one ``{"kernels": [...]}`` line,
+    and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a GPU, and in a directory without the port.
-``--only kernels|small|modelscope|generate|modes|videocrafter|train`` runs the
-build and one group of phases (for work on one of them; it prints no result line).
+``--only kernels|small|modelscope|generate|modes|videocrafter|vcgenerate|vcbranches|train``
+runs the build and those groups of phases (a comma-separated list, for work
+on one of them; it prints no result line); ``--only vcddpm`` answers the
+full-width DDPM request (1,000 steps), which the default run leaves out.
 """
 
 from __future__ import annotations
@@ -275,26 +289,31 @@ class KernelRecord:
         self.main = None  # timings at that path's dominant shape
 
     def timed(self, shape, ms, plain_ms, library_ms, flops, nbytes, main=False, plan="",
-              before_key=None) -> None:
-        """Print one launch's time at ``shape`` beside its bound, the plain
+              before_key=None, device_ms=None) -> None:
+        """Print one launch's time at ``shape`` (CUDA events around the
+        wrapper, and ``device_ms``, the kernels' device time by
+        torch.profiler, where measured) beside its bound, the plain
         version's and the library call's (None: no PyTorch call computes the
         function), the rate it reached in the bound's unit and its share of
         the bound, and at the dominant shape of a redesigned kernel (or at
         the shape ``before_key`` names) its time before the redesign; keep
-        it for the JSON line when it is the dominant shape."""
+        it for the JSON line when it is the dominant shape (a device time of
+        0, which the profiler did not record, is kept as None)."""
         bound, by = _bound_ms(flops, nbytes)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if by == "operations"
                 else f"{nbytes / ms / 1e9:.3f} TB/s")
         before = BEFORE_REDESIGN_MS.get(before_key or self.name) if main or before_key else None
-        print(f"  time {self.name:18s} {str(tuple(shape)):26s} kernel {ms:.4f} ms, plain "
+        dev = f", device {device_ms:.4f} ms" if device_ms else ""
+        print(f"  time {self.name:18s} {str(tuple(shape)):26s} kernel {ms:.4f} ms{dev}, plain "
               f"{plain_ms:.4f} ms, library {lib}, bound {bound:.4f} ms ({by}); {rate}, "
               f"{100 * bound / ms:.1f}% of the bound"
               + (f"; before the redesign {before:.4f} ms ({before / ms:.2f}x)" if before else "")
               + (f"; plan {plan}" if plan else ""), flush=True)
         if main:
-            self.main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                         "library_ms": library_ms, "shape": list(shape)}
+            self.main = {"ms": ms, "device_ms": device_ms or None, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+                         "shape": list(shape)}
 
     def as_json(self, launches: dict) -> dict:
         return {"name": self.name, "route": "cuda", "source": self.source,
@@ -387,7 +406,8 @@ def _time_temporal_layer(rec, tc, x, layer, main) -> None:
     rec.timed((b, f, hw, c), ms, plain_ms, lib_ms, 2.0 * m * 3 * c * c,
               2 * m * c * 2 + 3 * c * c * 2, main=main,
               plan=f"tile {p.bm}x{p.bn} (last column tile {p.last_cols}), {p.stages} stages, "
-                   f"{p.smem_bytes} B, {p.blocks} blocks")
+                   f"{p.smem_bytes} B, {p.blocks} blocks",
+              device_ms=_kernel_device_ms(call, "temporal_conv_") if main else None)
     if main:
         _split_temporal_layer(rec, x, call, 2.0 * m * 3 * c * c)
 
@@ -552,10 +572,11 @@ def check_flash(g) -> list[KernelRecord]:
         # SDPA takes its fused paths on 4-D (batch, heads, seq, dim) input
         q4, k4, v4 = q[:, None], k[:, None], v[:, None]
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale), 10)
+        dev = _kernel_device_ms(call, "flash_fwd_kernel")
         rec.timed((b, n, s, d), ms, plain_ms, lib_ms, *_attn_flops_bytes(b, n, s, d),
                   main=(b, d) == (240, 64), plan=plan,
-                  before_key="flash_attention_vae" if (b, d) == (24, 512) else None)
-        dev = _kernel_device_ms(call, "flash_fwd_kernel")
+                  before_key="flash_attention_vae" if (b, d) == (24, 512) else None,
+                  device_ms=dev)
         flops = _attn_flops_bytes(b, n, s, d)[0]
         print(f"  device flash_attention {str((b, n, s, d)):26s} "
               + (f"{dev:.4f} ms ({flops / dev / 1e9:.1f} TFLOP/s; torch.profiler)" if dev
@@ -674,10 +695,10 @@ def check_flash_bwd(g, fwd: KernelRecord) -> list[KernelRecord]:
                 (dq, lambda: fa.flash_attention_bwd_dq(*args),
                  lambda: fa.flash_attention_bwd_dq_plain(*args), "flash_bwd_dq_kernel", 3,
                  2.0 * b * n * d, dq_plan)):
+            dev = _kernel_device_ms(call, kernel)
             rec.timed((b, n, s, d), _time_ms(call, 10), _time_ms(plain, 3), lib_ms,
                       products * prod, in_bytes + out_bytes, main=case == FLASH_BWD_PATH[0],
-                      plan=plan)
-            dev = _kernel_device_ms(call, kernel)
+                      plan=plan, device_ms=dev)
             pair += dev
             print(f"  device {rec.name:16s} {str((b, n, s, d)):26s} "
                   + (f"{dev:.4f} ms ({products * prod / dev / 1e9:.1f} TFLOP/s; torch.profiler)"
@@ -722,12 +743,14 @@ def check_fused_mha(g) -> list[KernelRecord]:
         if (b, n, h, d) in SELF_MHA_RAGGED:  # checked, not timed
             continue
         fold = lambda t: t.view(b, n, h, d).transpose(1, 2)
-        ms = _time_ms(lambda: fused_self_mha(q, k, v, h), 20)
+        call = lambda: fused_self_mha(q, k, v, h)  # noqa: E731
+        ms = _time_ms(call, 20)
         plain_ms = _time_ms(lambda: fused_self_mha_plain(q, k, v, h), 3)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(fold(q), fold(k), fold(v)), 20)
+        main = (b, n, h) == (48, 256, 10)
         rec.timed((b, n, hd, h), ms, plain_ms, lib_ms, *_attn_flops_bytes(b, n, n, d, h),
-                  main=(b, n, h) == (48, 256, 10),
-                  plan=_mha_plan_note(self_mha_plan(b, n, n, h, d)))
+                  main=main, plan=_mha_plan_note(self_mha_plan(b, n, n, h, d)),
+                  device_ms=_kernel_device_ms(call, "packed_mha_kernel") if main else None)
         _release()
 
     cross = KernelRecord("fused_cross_mha", "t2v_torch/csrc/fused_mha.cu",
@@ -745,14 +768,15 @@ def check_fused_mha(g) -> list[KernelRecord]:
         if (b, n, s, h, d) in CROSS_MHA_RAGGED:  # checked, not timed
             continue
         fold = lambda t: t.view(b, t.shape[1], h, d).transpose(1, 2)
-        ms = _time_ms(lambda: fused_cross_mha(q, k, v, h), 20)
+        call = lambda: fused_cross_mha(q, k, v, h)  # noqa: E731
+        ms = _time_ms(call, 20)
         plain_ms = _time_ms(lambda: fused_cross_mha_plain(q, k, v, h), 3)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(fold(q), fold(k), fold(v)), 20)
+        dev = _kernel_device_ms(call, "packed_mha_kernel") if n == 16384 else None
         cross.timed((b, n, s, hd, h), ms, plain_ms, lib_ms, *_attn_flops_bytes(b, n, s, d, h),
-                    main=n == 16384, plan=_mha_plan_note(self_mha_plan(b, n, s, h, d)))
+                    main=n == 16384, plan=_mha_plan_note(self_mha_plan(b, n, s, h, d)),
+                    device_ms=dev)
         if n == 16384:
-            call = lambda: fused_cross_mha(q, k, v, h)  # noqa: E731
-            dev = _kernel_device_ms(call, "packed_mha_kernel")
             print(f"  device fused_cross_mha {str((b, n, s, hd, h)):26s} "
                   + (f"{dev:.4f} ms (torch.profiler)" if dev
                      else "not measured (the profiler recorded no device time)")
@@ -799,10 +823,10 @@ def check_relpos(g) -> list[KernelRecord]:
         plain_ms = _time_ms(lambda: relpos_mha_plain(q, k, v, k2, v2, h, t), 3)
         items = b * n * h
         main = n == 1024
+        dev = _kernel_device_ms(call, "relpos_mha_kernel")
         rec.timed(shape, ms, plain_ms, None, 8.0 * items * t * t * d,
                   2.0 * (4 * b * t * n * hd + 2 * t * t * d), main=main, plan=plan,
-                  before_key=None if main else f"relpos_mha {shape}")
-        dev = _kernel_device_ms(call, "relpos_mha_kernel")
+                  before_key=None if main else f"relpos_mha {shape}", device_ms=dev)
         before = (f" (before the redesign {RELPOS_HOST_US_BEFORE[0]:.1f}-"
                   f"{RELPOS_HOST_US_BEFORE[1]:.1f} us)" if main else "")
         print(f"  device relpos_mha      {str(shape):26s} "
@@ -845,12 +869,14 @@ def check_temporal_mha(g) -> list[KernelRecord]:
         lib_rec = KernelRecord("sdpa yardstick", "", "", "")
         _compare(lib_rec, f"x{(b * f, n, hd)} F={f}", lib().transpose(1, 2).reshape(q.shape),
                  fused_temporal_mha_plain(q, k, v, h, f))
-        ms = _time_ms(lambda: temporal_attention_packed(q, k, v, h, f), 10)
+        call = lambda: temporal_attention_packed(q, k, v, h, f)  # noqa: E731
+        ms = _time_ms(call, 10)
         plain_ms = _time_ms(lambda: fused_temporal_mha_plain(q, k, v, h, f), 3)
         lib_ms = _time_ms(lib, 10)
+        main = (f, n) == (T, 1024)
         rec.timed((b * f, n, hd, h), ms, plain_ms, lib_ms, *_attn_flops_bytes(b * n, f, f, d, h),
-                  main=(f, n) == (T, 1024),
-                  plan=_mha_plan_note(self_mha_plan(b * n, f, f, h, d)))
+                  main=main, plan=_mha_plan_note(self_mha_plan(b * n, f, f, h, d)),
+                  device_ms=_kernel_device_ms(call, "packed_mha_kernel") if main else None)
         del q, k, v
         _release()
     return [rec]
@@ -889,12 +915,15 @@ def check_geglu(g) -> list[KernelRecord]:
             continue
         inner = two_inner // 2
         h, gate = proj[:, :inner], proj[:, inner:]
-        ms = _time_ms(lambda: geglu(proj), 20)
+        call = lambda: geglu(proj)  # noqa: E731
+        ms = _time_ms(call, 20)
         plain_ms = _time_ms(lambda: geglu_plain(proj), 3)
         # the library yardstick is two calls, F.gelu and the product, in bf16
         lib_ms = _time_ms(lambda: h * F.gelu(gate), 20)
+        main = (rows, two_inner) == (49152, 2560)
         rec.timed((rows, two_inner), ms, plain_ms, lib_ms, GEGLU_FLOPS * rows * inner,
-                  2.0 * rows * (two_inner + inner), main=(rows, two_inner) == (49152, 2560))
+                  2.0 * rows * (two_inner + inner), main=main,
+                  device_ms=_kernel_device_ms(call, "geglu_kernel") if main else None)
         del proj, h, gate
         _release()
     return [rec]
@@ -1164,34 +1193,48 @@ def _small_pipeline_check(label, build, args, noise, device) -> dict:
 
     ref = build(Policy.fp32(), "cpu")
     _perturb_zero_leaves(ref)
-
-    def copy(policy, dev):
-        pipe = build(policy, dev)
-        for dst, src in zip(_models(pipe), _models(ref)):
-            dst.load_state_dict(src.state_dict())
-        return pipe
-
+    t0 = time.perf_counter()
     want = ref.infer(args, noise=noise)
-    cpu16 = copy(Policy.bf16(), "cpu").infer(args, noise=noise)
-    pipe = copy(Policy.bf16(), device)
+    cpu16 = _copied(build, ref, Policy.bf16(), "cpu").infer(args, noise=noise)
+    t_cpu = time.perf_counter() - t0
+    pipe = _copied(build, ref, Policy.bf16(), device)
     _reset_counters()
+    t0 = time.perf_counter()
     got = pipe.infer(args, noise=noise)
+    t_dev = time.perf_counter() - t0
     launches = _read_counters()
+    for what, pick in (("latents", lambda r: r.latents), ("frames", lambda r: r.frames)):
+        _within_ratio(f"{label} {what}", pick(got), pick(cpu16), pick(want), device)
+    print(f"{label} launches on {device}: {launches}; {t_dev:.2f} s on {device}, "
+          f"{t_cpu:.2f} s for the two CPU runs", flush=True)
+    return launches
+
+
+def _copied(build, ref, policy, device):
+    """``build(policy, device)`` with ``ref``'s weights."""
+    pipe = build(policy, device)
+    for dst, src in zip(_models(pipe), _models(ref)):
+        dst.load_state_dict(src.state_dict())
+    return pipe
+
+
+def _within_ratio(label, got, cpu16, want, device="cuda") -> None:
+    """Fail unless ``got`` (bf16 on the card) is at most SMALL_RATIO times
+    as far from the float32 reference ``want`` as ``cpu16`` (the same bf16
+    computation on the CPU) is, in relative RMS."""
+    import torch
 
     def rel(a, b) -> float:
         a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
         return ((a - b).norm() / b.norm()).item()
 
-    for what, pick in (("latents", lambda r: r.latents), ("frames", lambda r: r.frames)):
-        err, floor = rel(pick(got), pick(want)), rel(pick(cpu16), pick(want))
-        ok = err <= SMALL_RATIO * floor
-        print(f"{label} {what}: bf16 on {device} {err:.3e} from the float32 reference, "
-              f"bf16 on cpu {floor:.3e}, limit {SMALL_RATIO * floor:.3e} "
-              f"{'ok' if ok else 'MISMATCH'}", flush=True)
-        if not ok:
-            _fail(f"{label} {what}: {err} from the reference, above {SMALL_RATIO} x {floor}")
-    print(f"{label} launches on {device}: {launches}", flush=True)
-    return launches
+    err, floor = rel(got, want), rel(cpu16, want)
+    ok = err <= SMALL_RATIO * floor
+    print(f"{label}: bf16 on {device} {err:.3e} from the float32 reference, "
+          f"bf16 on cpu {floor:.3e}, limit {SMALL_RATIO * floor:.3e} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        _fail(f"{label}: {err} from the reference, above {SMALL_RATIO} x {floor}")
 
 
 def check_small_pipeline(device: str = "cuda") -> dict:
@@ -2245,6 +2288,507 @@ def drive_vcgenerate() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# VideoCrafter's other branches (``--only vcbranches``; the full-width DDPM
+# chain alone in ``--only vcddpm``)
+
+VCB_ARGS = dict(prompt="a photo of a cat in the forest", n_prompt="blurry", seed=1234,
+                steps=VC_STEPS, frames=VC_T, width=PX, height=PX, cfg_scale=CFG)
+VCB_FPS_NAME = "chip_smoke_vc_fps"
+VCB_INPAINT_FRAMES = 4   # keyframes of the inpainting request: frame 0 keeps the source
+VCB_WINDOW = 5           # callback interval of the windowed requests
+SMALL_DDPM_T = 10        # timesteps of the small DDPM chain (its whole chain)
+SMALL_DEPTH = dict(frames=2, adapter_frames=4)
+MASKED_SHAPE = (2, VC_T, 1024, 8, 40)  # (B, T, N, H, D): the top level of the VC UNet
+
+
+def _differ(label, a, b) -> None:
+    import numpy as np
+
+    if np.array_equal(a, b):
+        _fail(f"{label}: the frames are identical")
+
+
+def _check_small_ddpm() -> dict:
+    """The DDPM chain on the small VideoCrafter pipeline (its config with
+    ``SMALL_DDPM_T`` timesteps, so the whole chain is that many steps, CFG
+    9), bf16 on the card against float32 on the CPU with the same starting
+    latent and injected step noise. The chain amplifies every difference
+    from step to step, so the gate is taken step by step: each step's
+    guided eps from the float32 chain's own state, on the three pipelines,
+    under SMALL_RATIO; then the card runs the whole chain through ``infer``
+    (finite, its distance from the float32 chain printed)."""
+    import dataclasses
+
+    import torch
+
+    from t2v_torch.core.config import T2VArgs, VideoCrafterUNetConfig
+    from t2v_torch.core.dtypes import Policy
+    from t2v_torch.diffusion import ddpm
+    from t2v_torch.diffusion.sampling import make_eps_fn
+    from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
+
+    cfg = dataclasses.replace(VideoCrafterUNetConfig(**SMALL_VC_UNET), num_timesteps=SMALL_DDPM_T)
+    args = T2VArgs(prompt="a red fox running in the snow", n_prompt="blurry", seed=3, steps=4,
+                   frames=4, width=64, height=64, cfg_scale=CFG)
+    g = torch.Generator().manual_seed(5)
+    shape = (1, 4, 32, 32, 4)
+    noise = torch.randn(shape, generator=g)
+    table = [torch.randn(shape, generator=g) for _ in range(SMALL_DDPM_T)]
+    build = lambda policy, dev: VideoCrafterPipeline.random_init(  # noqa: E731
+        cfg, policy, seed=0, device=dev, small_aux=True)
+    ref = build(Policy.fp32(), "cpu")
+    _perturb_zero_leaves(ref)
+    pipes = {"f32": ref, "cpu16": _copied(build, ref, Policy.bf16(), "cpu"),
+             "card": _copied(build, ref, Policy.bf16(), "cuda")}
+
+    def guided(pipe):
+        cond, uncond = pipe.encode_text([args.prompt]), pipe.encode_text([args.n_prompt])
+        return make_eps_fn(pipe.make_apply_fn(), cond, uncond, args.cfg_scale, "full",
+                           pipe.cfg.parameterization, pipe.schedule)
+
+    with torch.no_grad():
+        fns = {k: guided(p) for k, p in pipes.items()}
+        states = []
+
+        def recording(x, t, i):
+            states.append((x.clone(), t, i))
+            return fns["f32"](x, t, i)
+
+        t0 = time.perf_counter()
+        want = ddpm.sample(recording, ref.schedule, noise, noise_table=table, clip_denoised=False)
+        eps = {k: [] for k in pipes}
+        _reset_counters()
+        for x, t, i in states:
+            for k, p in pipes.items():
+                eps[k].append(fns[k](x.to(p.device), t, i).float().cpu())
+        torch.cuda.synchronize()
+        launches = _read_counters()
+        t_steps = time.perf_counter() - t0
+    label = f"small VideoCrafter DDPM (T = {SMALL_DDPM_T}, the whole chain)"
+    _within_ratio(f"{label}: every step's eps on the float32 chain's state",
+                  *(torch.stack(eps[k]) for k in ("card", "cpu16", "f32")))
+    t0 = time.perf_counter()
+    res = pipes["card"].infer(args, noise=noise, sample_type="ddpm", ddpm_noise=table)
+    t_card = time.perf_counter() - t0
+    lat = res.latents.cpu()
+    if not torch.isfinite(lat).all():
+        _fail(f"{label}: the card's chain is not finite")
+    print(f"{label}: the card's whole chain {t_card:.2f} s, its latents "
+          f"{((lat - want).norm() / want.norm()).item():.3e} from the float32 chain's (relative "
+          f"RMS; the chain carries each step's difference into the next); the per-step pass "
+          f"{t_steps:.2f} s with launches {launches}", flush=True)
+    if not all(launches[k] for k in ("flash_attention", "fused_self_mha", "fused_cross_mha",
+                                     "relpos_mha")):
+        _fail(f"{label}: a kernel of the path did not run: {launches}")
+    return launches
+
+
+def _check_small_depth_adapter() -> None:
+    """A tiny MidasSmall (BatchNorms folded, as the loader does) and a
+    tiny depth-layout Adapter in bf16 on the card against float32 on the
+    CPU, under the small pipelines' rule (at most SMALL_RATIO times as far
+    from float32 as bf16 on the CPU)."""
+    import torch
+
+    from t2v_torch.models.adapter import Adapter, AdapterConfig
+    from t2v_torch.models.depth import MidasSmall, MidasSmallConfig
+    from t2v_torch.pipeline.pipeline import init_weights
+
+    g = torch.Generator().manual_seed(11)
+    midas = MidasSmall(MidasSmallConfig().tiny()).eval()
+    init_weights(midas, 7)
+    with torch.no_grad():
+        for name, b in midas.named_buffers():
+            if name.endswith("running_var"):
+                b.uniform_(0.5, 2.0, generator=g)
+            elif name.endswith("running_mean"):
+                b.normal_(0.0, 0.5, generator=g)
+    midas.fold_batchnorm()
+    adapter = Adapter(AdapterConfig(channels=(64, 128, 256, 256), nums_rb=2, ksize=1, sk=True,
+                                    use_conv=False)).eval()
+    init_weights(adapter, 8)
+    frames = torch.rand((SMALL_DEPTH["frames"], 384, 384, 3), generator=g) * 2 - 1
+    depth = torch.rand((SMALL_DEPTH["adapter_frames"], 256, 256, 1), generator=g) * 2 - 1
+    for label, module, x in (("MidasSmall (tiny)", midas, frames),
+                             ("Adapter (tiny, depth layout)", adapter, depth)):
+        with torch.no_grad():
+            want = module(x)
+            cpu16 = [module.to(torch.bfloat16)(x)]
+            got = module.cuda()(x.cuda())
+            module.float().cpu()
+        want, cpu16, got = (o if isinstance(o, tuple) else (o,) for o in (want, cpu16[0], got))
+        for i, (a, b, c) in enumerate(zip(got, cpu16, want)):
+            if not torch.isfinite(a).all():
+                _fail(f"{label}: output {i} is not finite on the card")
+            _within_ratio(f"{label} output {i} {tuple(c.shape)}", a.float(), b.float(), c)
+
+
+def _check_masked_temporal_attention() -> None:
+    """One masked temporal-attention call (a causal frame mask) in bf16 on
+    the card at the VideoCrafter UNet's top level: no rel-pos launch (the
+    dispatch sends a masked call to the plain version), and within
+    TOL_SHARE of the float32 CPU run on the same inputs; the mask changes
+    the output."""
+    import torch
+
+    from t2v_torch.kernels.attention import relpos_attention
+
+    b, t, n, h, d = MASKED_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn((b * t, n, h * d), generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    k2, v2 = (torch.randn((t, t, d), generator=g, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    mask = torch.tril(torch.ones((t, t), device="cuda"))
+    _reset_counters()
+    t0 = time.perf_counter()
+    got = relpos_attention(q, k, v, k2, v2, h, t, d ** -0.5, mask=mask)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = _read_counters()
+    if counts["relpos_mha"]:
+        _fail(f"masked temporal attention: the rel-pos kernel ran ({counts})")
+    cpu = [x.float().cpu() for x in (q, k, v, k2, v2)]
+    want = relpos_attention(*cpu, h, t, d ** -0.5, mask=mask.cpu())
+    rec = KernelRecord("masked relpos_mha", "", "", "")
+    _compare(rec, f"{tuple(q.shape)} heads={h} causal mask (plain on the card)", got.cpu(), want)
+    free = relpos_attention(*cpu, h, t, d ** -0.5)
+    if torch.equal(free, want):
+        _fail("masked temporal attention: the mask changed nothing")
+    print(f"masked temporal attention: {ms:.1f} ms on the card through the plain version, "
+          f"launches {counts}", flush=True)
+
+
+def _write_depth_inputs(root: Path) -> tuple[Path, Path, Path]:
+    """The depth adapter's three files at full size from seeds: the
+    published depth adapter (``AdapterConfig.depth_adapter()``, 77.0M
+    parameters) as a float32 ``.pth`` under ``state_dict`` with the
+    ``adapter.`` prefix; ``midas_v21_small`` (``MidasSmallConfig()``, with
+    BatchNorm statistics) as a float32 ``.pt``; a 16-frame 256x256 RGB mp4
+    (cv2's mp4v writer) of a moving seeded pattern."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from t2v_torch.models.adapter import Adapter, AdapterConfig
+    from t2v_torch.models.depth import MidasSmall
+    from t2v_torch.pipeline.pipeline import init_weights
+
+    adapter = Adapter(AdapterConfig.depth_adapter())
+    init_weights(adapter, 31)
+    adapter_path = root / "adapter_depth.pth"
+    torch.save({"state_dict": {f"adapter.{k}": v for k, v in adapter.state_dict().items()}},
+               adapter_path)
+    midas = MidasSmall()
+    init_weights(midas, 32)
+    g = torch.Generator().manual_seed(33)
+    with torch.no_grad():
+        for name, b in midas.named_buffers():
+            if name.endswith("running_var"):
+                b.uniform_(0.5, 2.0, generator=g)
+            elif name.endswith("running_mean"):
+                b.normal_(0.0, 0.5, generator=g)
+    midas_path = root / "midas_v21_small.pt"
+    torch.save(midas.state_dict(), midas_path)
+    video = root / "depth_source.mp4"
+    rng = np.random.default_rng(34)
+    base = cv2.resize(rng.integers(0, 255, (16, 16, 3), dtype=np.uint8), (2 * PX, 2 * PX),
+                      interpolation=cv2.INTER_CUBIC)
+    writer = cv2.VideoWriter(str(video), cv2.VideoWriter_fourcc(*"mp4v"), 8, (PX, PX))
+    for i in range(VC_T):
+        writer.write(base[4 * i:4 * i + PX, 6 * i:6 * i + PX])
+    writer.release()
+    return adapter_path, midas_path, video
+
+
+def drive_vcbranches() -> dict:
+    """VideoCrafter's other branches at full width (the 0.959B UNet, CLIP-L
+    at 49,408 rows, the SD VAE; bf16; 16 frames at 256x256, 20 steps, CFG
+    9): first the small checks (the DDPM chain on the small pipeline, a tiny
+    MidasSmall and Adapter, one masked temporal-attention call), then the
+    default DDIM request and the ``uc_type`` variants, DPM++ 2M whole and
+    windowed by a callback, LVDM mask inpainting through ``run``, an
+    FPS-conditioned model written as a Lightning ``model.ckpt`` and loaded
+    through ``load_vc_pipeline`` (8 and 24 frames a second, and none), and
+    the depth adapter with MiDaS from files through ``run`` and the CLI.
+    Every request counts its launches against the topology's, with the
+    plain versions barred from CUDA tensors. Returns the launches of each
+    path."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from t2v_torch.cli import generate
+    from t2v_torch.core.config import CLIPTextConfig, T2VArgs, T2VOutputArgs
+    from t2v_torch.core.dtypes import Policy
+    from t2v_torch.io.convert_vc import base_t2v_yaml, lightning_state_dict
+    from t2v_torch.media.video import vid2frames
+    from t2v_torch.models.adapter import AdapterConfig
+    from t2v_torch.models.depth import DepthStage
+    from t2v_torch.models.videocrafter_unet import FPSEmbedder, count_vc_kernel_sites
+    from t2v_torch.pipeline import pipeline as pl
+    from t2v_torch.pipeline import run as run_mod
+    from t2v_torch.pipeline import videocrafter as vc
+    from t2v_torch.pipeline.pipeline import init_weights
+    from t2v_torch.text.tokenizer import CLIPTokenizer
+
+    launches = {"vcbranches_small_ddpm": _check_small_ddpm()}
+    _check_small_depth_adapter()
+    _check_masked_temporal_attention()
+    _release()
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_vcb_", dir=REPO))
+    saved_root = os.environ.get("T2V_MODELS_ROOT")
+    try:
+        t0 = time.perf_counter()
+        pipe = vc.VideoCrafterPipeline.random_init(
+            policy=Policy.bf16(), seed=0, device="cuda", clip_cfg=CLIPTextConfig.clip_l_14())
+        _perturb_zero_leaves(pipe)
+        pipe.tokenizer = CLIPTokenizer.from_vocab_file(str(VOCAB))
+        torch.cuda.synchronize()
+        print(f"vcbranches: full-width pipeline {time.perf_counter() - t0:.1f} s, UNet "
+              f"{sum(p.numel() for p in pipe.unet.parameters()) / 1e9:.3f}B params, CLIP-L "
+              f"{pipe.clip_cfg.vocab_size} rows", flush=True)
+        per_call = count_vc_kernel_sites(pipe.cfg, VC_T, LAT, LAT)
+        expected = _expected(per_call, VC_STEPS, 1)
+        args = T2VArgs(**VCB_ARGS)
+
+        def answer(label, p, a, **kw):
+            return _answer(f"vcbranches: {label}", p, a, VC_T, expected, VC_STEPS, **kw)
+
+        launches["vcbranches_ddim"], base = answer("DDIM (default)", pipe, args)
+        uc = {}
+        for uc_type in ("cfg_original", "cfg_ours"):
+            launches[f"vcbranches_{uc_type}"], uc[uc_type] = answer(
+                f"DDIM uc_type {uc_type}", pipe, args, uc_type=uc_type)
+            _differ(f"vcbranches: {uc_type} against the default", uc[uc_type].frames,
+                    base.frames)
+        _differ("vcbranches: cfg_original against cfg_ours", uc["cfg_original"].frames,
+                uc["cfg_ours"].frames)
+        del uc
+
+        launches["vcbranches_dpmpp"], whole = answer("DPM++ 2M", pipe, args,
+                                                     sample_type="dpm++ 2m")
+        done = []
+        launches["vcbranches_dpmpp_windowed"], windowed = answer(
+            f"DPM++ 2M windowed (callback every {VCB_WINDOW} steps)", pipe, args,
+            sample_type="dpm++ 2m", callback=done.append, callback_interval=VCB_WINDOW)
+        if done != list(range(VCB_WINDOW, VC_STEPS + 1, VCB_WINDOW)):
+            _fail(f"vcbranches: the windowed DPM++ 2M request called back at {done}")
+        if not torch.equal(windowed.latents, whole.latents):
+            _fail("vcbranches: the windowed DPM++ 2M latents differ from the whole loop's")
+        print(f"vcbranches: windowed DPM++ 2M latents bit-identical to the whole loop's "
+              f"(callbacks at {done})", flush=True)
+        del whole, windowed
+
+        # LVDM mask inpainting through run, from a seeded 256x256 image
+        image = root / "inpaint_source.png"
+        rgb = cv2.resize(np.random.default_rng(35).integers(0, 255, (32, 32, 3), dtype=np.uint8),
+                         (PX, PX), interpolation=cv2.INTER_CUBIC)
+        cv2.imwrite(str(image), cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+        iargs = args.replace(inpainting_frames=VCB_INPAINT_FRAMES, inpainting_image=str(image))
+        encodes = -(-VC_T // pl.DECODE_CHUNK)
+        inpaint_expected = dict(expected, flash_attention=expected["flash_attention"] + encodes)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        t0 = time.perf_counter()
+        with _no_plain_on_cuda(), _recording_infer(vc.VideoCrafterPipeline) as results:
+            run_mod.run(iargs, T2VOutputArgs(), pipe=pipe, outdir=str(root / "inpaint"))
+        t_run = time.perf_counter() - t0
+        launches["vcbranches_inpaint_run"] = counts = _read_counters()
+        if len(results) != 1 or counts != inpaint_expected:
+            _fail(f"vcbranches: inpainting through run answered {len(results)} requests with "
+                  f"launches {counts}, expected {inpaint_expected} ({encodes} encode calls)")
+        # the kept frame (mask 1) is the source re-noised to t = 0 by the last
+        # step's blend: sqrt(abar_0) * source + sqrt(1 - abar_0) * a N(0, 1) draw
+        img = cv2.cvtColor(cv2.imread(str(image)), cv2.COLOR_BGR2RGB)
+        mask, src = pipe.build_inpainting_inputs(img, iargs)
+        kept = mask[0, :, 0, 0, 0] == 1
+        sa = float(pipe.schedule.sqrt_alphas_cumprod[0])
+        s1ma = float(pipe.schedule.sqrt_one_minus_alphas_cumprod[0])
+        lat = results[0].latents
+        draw = (lat[0, kept] - sa * src[0, kept]) / s1ma
+        rms = draw.pow(2).mean().sqrt().item()
+        moved = (lat[0, ~kept] - src[0, ~kept]).abs().mean().item()
+        print(f"vcbranches: inpainting through run {t_run:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {counts}; keep "
+              f"weights {[round(x, 3) for x in mask[0, :, 0, 0, 0].tolist()[:5]]}...; kept "
+              f"frame(s) {kept.nonzero().flatten().tolist()} = sqrt(abar_0) source + "
+              f"{s1ma:.4f} x a draw of RMS {rms:.3f}; the other frames' mean distance from "
+              f"the source {moved:.3f}", flush=True)
+        if not 0.9 < rms < 1.1 or moved < 10 * s1ma:
+            _fail(f"vcbranches: the kept frames do not hold the source (draw RMS {rms}, "
+                  f"other frames {moved})")
+        del results, lat, src, mask
+        run_mod._warm_pipe = None
+
+        # an FPS-conditioned model from a Lightning model.ckpt
+        fps_cfg = dataclasses.replace(pipe.cfg, cond_stage2_key="temporal_context")
+        with torch.device("cuda"):
+            fps = FPSEmbedder(pipe.cfg.model_channels)
+        init_weights(fps, 36)
+        fps = fps.to(torch.bfloat16)
+        model_dir = root / "text2video" / VCB_FPS_NAME
+        model_dir.mkdir(parents=True)
+        t0 = time.perf_counter()
+        (model_dir / "model_config.yaml").write_text(base_t2v_yaml(fps_cfg, pipe.vae_cfg, VC_T))
+        torch.save({"state_dict": lightning_state_dict(pipe.unet, pipe.vae, pipe.clip, fps),
+                    "global_step": 0, "epoch": 0}, model_dir / "model.ckpt")
+        shutil.copy(VOCAB, model_dir / "bpe_simple_vocab_16e6.txt.gz")
+        os.sync()
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fpipe = vc.load_vc_pipeline(str(model_dir))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(fpipe.fps_embedder.state_dict().values(),
+                                                     fps.state_dict().values()))
+        if not same or fpipe.fps_embedder.fps_embed[0].weight.device.type != "cuda":
+            _fail("vcbranches: the loaded FPS embedder differs from the source's or is not on "
+                  "the card")
+        print(f"vcbranches: FPS model written in {t_write:.2f} s (model.ckpt with "
+              f"cond_stage2_model.*, model_config.yaml with cond_stage2_config), "
+              f"load_vc_pipeline {t_load:.2f} s; the embedder's weights bit-identical to the "
+              f"source's, on the card", flush=True)
+        del fps, pipe
+        _release()
+        fargs = args.replace(model_type="VideoCrafter", model=VCB_FPS_NAME)
+        launches["vcbranches_fps8"], fps8 = answer("FPS model, cond_fps 8", fpipe,
+                                                   fargs.replace(cond_fps=8))
+        launches["vcbranches_fps24"], fps24 = answer("FPS model, cond_fps 24", fpipe,
+                                                     fargs.replace(cond_fps=24))
+        _differ("vcbranches: cond_fps 8 against 24", fps8.frames, fps24.frames)
+        try:
+            fpipe.infer(fargs)
+        except ValueError as e:
+            print(f"vcbranches: no cond_fps on the FPS model raises: {e}", flush=True)
+        else:
+            _fail("vcbranches: the FPS model answered without cond_fps")
+        del fps24
+
+        # the depth adapter with MiDaS, at full size, from files
+        t0 = time.perf_counter()
+        adapter_path, midas_path, video = _write_depth_inputs(root)
+        print(f"vcbranches: depth adapter files written in {time.perf_counter() - t0:.2f} s "
+              f"({adapter_path.stat().st_size / 1e6:.1f} MB adapter, "
+              f"{midas_path.stat().st_size / 1e6:.1f} MB MiDaS, 16-frame mp4)", flush=True)
+        frames = np.stack(vid2frames(str(video), start_frame=0, end_frame=VC_T))
+        t0 = time.perf_counter()
+        stage = DepthStage.from_checkpoint(str(midas_path), fpipe.policy, device=fpipe.device)
+        t_midas_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        depth = stage.video_depth(frames, (PX, PX))
+        torch.cuda.synchronize()
+        t_midas = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        adapter = fpipe.load_adapter(str(adapter_path))
+        t_adapter_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        feats = fpipe.adapter_features(adapter, depth[None])
+        torch.cuda.synchronize()
+        t_adapter = time.perf_counter() - t0
+        shapes = [tuple(f.shape) for f in feats]
+        want_shapes = [(1, VC_T, LAT >> i, LAT >> i, c)
+                       for i, c in enumerate(AdapterConfig.depth_adapter().channels)]
+        on_card = all(p.device.type == "cuda" for m in (adapter, stage.estimator)
+                      for p in m.parameters())
+        print(f"vcbranches: MiDaS {t_midas:.3f} s for {VC_T} frames (load {t_midas_load:.2f} s), "
+              f"depth {tuple(depth.shape)} in [{depth.min().item():.2f}, "
+              f"{depth.max().item():.2f}]; adapter {t_adapter:.3f} s (load "
+              f"{t_adapter_load:.2f} s, {sum(p.numel() for p in adapter.parameters()) / 1e6:.1f}M "
+              f"params), features {shapes}; both on the card: {on_card}", flush=True)
+        if shapes != want_shapes or not on_card or not all(torch.isfinite(f).all() for f in feats):
+            _fail(f"vcbranches: adapter features {shapes} (want {want_shapes}), on the card "
+                  f"{on_card}")
+        del stage, adapter, feats, depth
+        _release()
+
+        os.environ["T2V_MODELS_ROOT"] = str(root)
+        aargs = fargs.replace(cond_fps=8)
+        adapter_files = dict(adapter_ckpt=str(adapter_path), adapter_video=str(video),
+                             depth_ckpt=str(midas_path))
+        for label, call in (
+                ("run", lambda: run_mod.run(aargs, T2VOutputArgs(), outdir=str(root / "a"),
+                                            **adapter_files)),
+                ("CLI", lambda: generate.main([
+                    "--model-type", "VideoCrafter", "--model", VCB_FPS_NAME, "--prompt",
+                    aargs.prompt, "--n-prompt", aargs.n_prompt, "--seed", str(aargs.seed),
+                    "--steps", str(VC_STEPS), "--frames", str(VC_T), "--width", str(PX),
+                    "--height", str(PX), "--cfg-scale", str(CFG), "--cond-fps", "8",
+                    "--adapter-ckpt", str(adapter_path), "--adapter-video", str(video),
+                    "--depth-ckpt", str(midas_path), "--outdir", str(root / "cli"),
+                    "--json"]))):
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counters()
+            t0 = time.perf_counter()
+            with _no_plain_on_cuda(), _recording_infer(vc.VideoCrafterPipeline) as results:
+                call()
+            total = time.perf_counter() - t0
+            launches[f"vcbranches_adapter_{label.lower()}"] = counts = _read_counters()
+            if not _on(results, fpipe) or counts != expected:
+                _fail(f"vcbranches: the depth adapter through {label}: {len(results)} requests "
+                      f"(on the loaded FPS pipeline: {_on(results, fpipe)}), launches {counts}, "
+                      f"expected {expected}")
+            tm = results[0].timings
+            print(f"vcbranches: depth adapter through {label} {total:.3f} s (files, MiDaS, "
+                  f"adapter, request and outputs; its request {sum(tm.values()):.3f} s), peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {counts}",
+                  flush=True)
+            _differ(f"vcbranches: the depth adapter through {label} against the request "
+                    "without it", results[0].frames, fps8.frames)
+            if label == "run":
+                adapted = results[0].frames
+            else:
+                _same_frames("vcbranches: the depth adapter through the CLI", results[0].frames,
+                             adapted)
+            del results
+        del fpipe
+    finally:
+        if saved_root is None:
+            os.environ.pop("T2V_MODELS_ROOT", None)
+        else:
+            os.environ["T2V_MODELS_ROOT"] = saved_root
+        run_mod._warm_pipe = None
+        pl._PIPELINE_CACHE.clear()
+        shutil.rmtree(root, ignore_errors=True)
+        _release()
+    return launches
+
+
+def drive_vcddpm() -> dict:
+    """The full-width DDPM request (``--only vcddpm``; left out of the
+    default run for its time): the whole 1,000-step ancestral chain with
+    CFG 9 on the pipeline of ``drive_vcbranches``, launches against the
+    topology's for 1,000 UNet calls."""
+    import torch
+
+    from t2v_torch.core.config import CLIPTextConfig, T2VArgs
+    from t2v_torch.core.dtypes import Policy
+    from t2v_torch.models.videocrafter_unet import count_vc_kernel_sites
+    from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
+    from t2v_torch.text.tokenizer import CLIPTokenizer
+
+    pipe = VideoCrafterPipeline.random_init(policy=Policy.bf16(), seed=0, device="cuda",
+                                            clip_cfg=CLIPTextConfig.clip_l_14())
+    _perturb_zero_leaves(pipe)
+    pipe.tokenizer = CLIPTokenizer.from_vocab_file(str(VOCAB))
+    steps = pipe.schedule.num_timesteps
+    expected = _expected(count_vc_kernel_sites(pipe.cfg, VC_T, LAT, LAT), steps, 1)
+    counts, res = _answer(f"vcddpm: full-width DDPM ({steps} steps)", pipe, T2VArgs(**VCB_ARGS),
+                          VC_T, expected, steps, sample_type="ddpm")
+    print(f"vcddpm: {sum(res.timings.values()):.1f} s for the request on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    del pipe, res
+    _release()
+    return {"vcddpm": counts}
+
+
 def _capture_unet_path(pipe, recs: dict) -> dict:
     """The path of rows 9 and 10: one CFG-batched 24-frame UNet call of the
     full-width pipeline with forward hooks that keep the q/k/v of every
@@ -2888,14 +3432,15 @@ def _print_breakdown(kernels, busy: float, top: int = 10) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     phases = ("kernels", "small", "modelscope", "generate", "modes", "videocrafter",
-              "vcgenerate", "train")
+              "vcgenerate", "vcbranches", "train")
     parser.add_argument("--only", help="run the build and these groups of phases (comma-"
-                        f"separated, of {', '.join(phases)}); prints no result line")
+                        f"separated, of {', '.join(phases)}, or vcddpm, which the default run "
+                        "leaves out); prints no result line")
     only = parser.parse_args().only
     if only is not None:
         only = set(only.split(","))
-        if not only <= set(phases):
-            parser.error(f"--only: unknown phases {sorted(only - set(phases))}")
+        if not only <= {*phases, "vcddpm"}:
+            parser.error(f"--only: unknown phases {sorted(only - {*phases, 'vcddpm'})}")
     run = lambda *names: only is None or bool(only & set(names))
     try:
         import torch
@@ -2955,6 +3500,12 @@ def main() -> int:
     if run("vcgenerate"):
         launches.update(drive_vcgenerate())
         print(f"vcgenerate done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    if run("vcbranches"):
+        launches.update(drive_vcbranches())
+        print(f"vcbranches done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    if only is not None and "vcddpm" in only:
+        launches.update(drive_vcddpm())
+        print(f"vcddpm done at {time.perf_counter() - t_start:.0f} s", flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -13,12 +13,15 @@ Usage:
 A VideoCrafter ``--model-dir`` is a directory with ``model.ckpt`` and
 ``model_config.yaml`` (or one the trainer saved), or the ``.ckpt`` itself;
 its ``--lora`` files are LVDM (``lora_up`` / ``lora_down``) LoRAs merged at
-load. On the card the weights are bf16 unless ``--fp32``; on the CPU
-(``--device cpu``) they are float32 and every kernel runs its plain
-PyTorch version. Not ported yet, and refused by name: VideoCrafter's other
-samplers and CFG variants (``--vc-sample-type``, ``--uc-type``), the depth
-adapter (``--adapter-*``, ``--depth-ckpt``) and sharded sampling
-(``--dp/--tp/--sp-shards`` above 1).
+load. VideoCrafter's own flags: ``--vc-sample-type`` (ddim, ddpm or
+dpm++ 2m), ``--uc-type`` (cfg_original or cfg_ours), ``--cond-fps`` (an
+FPS-conditioned model requires it), ``--inpainting-image`` with
+``--inpainting-frames`` (LVDM's static mask), and the depth adapter
+(``--adapter-ckpt`` with ``--adapter-video``, RGB with ``--depth-ckpt`` or
+precomputed depth maps without). On the card the weights are bf16 unless
+``--fp32``; on the CPU (``--device cpu``) they are float32 and every kernel
+runs its plain PyTorch version. Not ported yet, and refused by name:
+sharded sampling (``--dp/--tp/--sp-shards`` above 1).
 """
 
 from __future__ import annotations
@@ -70,12 +73,16 @@ def build_parser() -> argparse.ArgumentParser:
                    "VideoCrafter (repeatable)")
     p.add_argument("--lora-alpha", type=float, default=1.0)
     p.add_argument("--vc-sample-type", default="ddim", choices=["ddim", "ddpm", "dpm++ 2m"],
-                   help="VideoCrafter denoising chain (only ddim is ported)")
+                   help="VideoCrafter denoising chain (ddpm runs all the schedule's timesteps)")
     p.add_argument("--uc-type", default=None, choices=["cfg_original", "cfg_ours"],
-                   help="VideoCrafter CFG variant (not ported yet)")
-    p.add_argument("--adapter-ckpt", help="T2I-Adapter checkpoint (not ported yet)")
-    p.add_argument("--adapter-video", help="adapter input video (not ported yet)")
-    p.add_argument("--depth-ckpt", help="midas_v21_small checkpoint (not ported yet)")
+                   help="VideoCrafter CFG variant (DDIM only)")
+    p.add_argument("--adapter-ckpt",
+                   help="T2I-Adapter checkpoint (VideoCrafter depth conditioning)")
+    p.add_argument("--adapter-video",
+                   help="adapter input video: RGB when --depth-ckpt is given (depth estimated "
+                   "in the pipeline), else precomputed depth maps")
+    p.add_argument("--depth-ckpt",
+                   help="midas_v21_small checkpoint for depth from the RGB adapter video")
     p.add_argument("--embeddings-dir",
                    help="textual-inversion embeddings directory (A1111 .pt/.bin/.safetensors; "
                    "ModelScope)")
@@ -144,16 +151,9 @@ def _refusals(ns) -> list[str]:
                    "encoder; VideoCrafter's CLIP-L encoding takes none")
     elif ns.embeddings_dir and not (ns.model_dir or ns.tiny):
         out.append("--embeddings-dir: needs the pipeline this call loads (--model-dir or --tiny)")
-    if ns.vc_sample_type != "ddim":
-        out.append(f"--vc-sample-type {ns.vc_sample_type}: VideoCrafter's other samplers are not "
-                   "ported yet (the VideoCrafter branches slice)")
-    if ns.uc_type is not None:
-        out.append("--uc-type: VideoCrafter's CFG variants are not ported yet (the VideoCrafter "
-                   "branches slice)")
-    for flag in ("adapter_ckpt", "adapter_video", "depth_ckpt"):
-        if getattr(ns, flag):
-            out.append(f"--{flag.replace('_', '-')}: the depth adapter is not ported yet (the "
-                       "VideoCrafter branches slice)")
+    if ns.adapter_ckpt and ns.model_type != "VideoCrafter":
+        out.append("--adapter-ckpt: the depth adapter conditions VideoCrafter "
+                   "(--model-type VideoCrafter)")
     for flag in ("dp_shards", "tp_shards", "sp_shards"):
         if getattr(ns, flag) > 1:
             out.append(f"--{flag.replace('_', '-')} {getattr(ns, flag)}: sharded sampling is "
@@ -275,6 +275,8 @@ def main(argv=None) -> int:
                 ns.keep_in_vram if ns.keep_in_vram is not None else not ns.no_keep_in_vram
             ),
             inpaint_mode=ns.inpaint_mode,
+            adapter_ckpt=ns.adapter_ckpt, adapter_video=ns.adapter_video,
+            depth_ckpt=ns.depth_ckpt,
             vc_sample_type=ns.vc_sample_type, vc_uc_type=ns.uc_type, device=str(device),
         )
 

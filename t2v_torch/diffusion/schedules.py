@@ -1,6 +1,6 @@
 """Diffusion noise schedules and the DDPM coefficient tables the port's
 samplers read: the part of the JAX package's ``diffusion/schedules.py``
-that the DDIM_Gaussian and DDIM paths need (the beta schedules, the
+that the port's samplers need (the beta schedules, the DDPM posterior, the
 ModelScope stride ladder, the SD-style DDIM timestep and sigma tables).
 
 Tables are computed once on the host in float64 (the reference's
@@ -95,6 +95,31 @@ class DiffusionSchedule:
     @property
     def sqrt_recipm1_alphas_cumprod(self) -> np.ndarray:
         return np.sqrt(1.0 / self._alphas_cumprod64 - 1.0).astype(np.float32)
+
+    @cached_property
+    def _posterior64(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """q(x_{t-1} | x_t, x0): the mean's two coefficients and the
+        variance (float64; 0 at t = 0)."""
+        ac = self._alphas_cumprod64
+        ac_prev = np.concatenate([[1.0], ac[:-1]])
+        return (self.betas * np.sqrt(ac_prev) / (1.0 - ac),
+                (1.0 - ac_prev) * np.sqrt(1.0 - self.betas) / (1.0 - ac),
+                self.betas * (1.0 - ac_prev) / (1.0 - ac))
+
+    @property
+    def posterior_mean_coef1(self) -> np.ndarray:
+        """Weight of the x0 prediction in the posterior mean."""
+        return self._posterior64[0].astype(np.float32)
+
+    @property
+    def posterior_mean_coef2(self) -> np.ndarray:
+        """Weight of x_t in the posterior mean."""
+        return self._posterior64[1].astype(np.float32)
+
+    @property
+    def posterior_log_variance_clipped(self) -> np.ndarray:
+        """log of the posterior variance, clipped below at 1e-20."""
+        return np.log(np.maximum(self._posterior64[2], 1e-20)).astype(np.float32)
 
 
 def modelscope_timesteps(num_timesteps: int, steps: int) -> np.ndarray:

@@ -5,12 +5,16 @@ part under a prefix:
   model.diffusion_model.*        -> ``VideoCrafterUNet``
   first_stage_model.*            -> ``AutoencoderKL`` (the SD VAE)
   cond_stage_model.transformer.* -> ``HFCLIPTextModel`` (CLIP-L)
+  cond_stage2_model.*            -> ``FPSEmbedder`` (FPS-conditioned models)
 The port's modules carry these state-dict names (the UNet's 1x1 Conv3d
 projections included), so loading a part is stripping its prefix and
-``convert.load_state``: no layout conversion. ``vc_module_index`` is the
-UNet's LoRA target index for ``pipeline/lora.py::merge_lvdm_lora``.
-``lightning_state_dict`` and ``base_t2v_yaml`` go the other way: the
-modules and configs in the published ``base_t2v`` layout.
+``convert.load_state``: no layout conversion. The FPS embedder's class is
+not published, so ``fps_embedder_state`` maps the two Linear layers it finds
+under its prefix, in key order, as the JAX package's
+``convert_fps_embedder`` does. ``vc_module_index`` is the UNet's LoRA target
+index for ``pipeline/lora.py::merge_lvdm_lora``. ``lightning_state_dict``
+and ``base_t2v_yaml`` go the other way: the modules and configs in the
+published ``base_t2v`` layout.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from t2v_torch.models.videocrafter_unet import build_vc_topology
 
 PREFIXES = {"unet": "model.diffusion_model.", "vae": "first_stage_model.",
             "clip": "cond_stage_model.transformer."}
+FPS_PREFIX = "cond_stage2_model."
 
 
 def split_lightning_state_dict(ckpt: Mapping[str, Any]) -> dict[str, dict]:
@@ -63,14 +68,48 @@ def vc_module_index(cfg: VideoCrafterUNetConfig) -> dict[str, tuple[str, str]]:
     return idx
 
 
-def lightning_state_dict(unet, vae, clip) -> dict[str, torch.Tensor]:
-    """The ``state_dict`` of a published ``model.ckpt`` from the port's
-    modules: each part's tensors under its prefix, floating ones in float32
-    on the CPU, and the ``position_ids`` buffer that HF CLIP checkpoints
-    carry beside the text tower."""
+def fps_embedder_state(other: Mapping[str, Any],
+                       cfg: VideoCrafterUNetConfig) -> dict[str, Any] | None:
+    """The ``FPSEmbedder`` state dict from a checkpoint's ``cond_stage2_model.*``
+    keys: its two 2-D weights in key order (with their biases, zeros where
+    absent) as ``fps_embed.0`` and ``fps_embed.2``. None when there are not
+    exactly two or their shapes do not fit the config."""
+    linears = [(k[:-len(".weight")], other[k]) for k in sorted(other)
+               if k.startswith(FPS_PREFIX) and k.endswith(".weight") and other[k].dim() == 2]
+    emb = cfg.model_channels * 4
+    wants = ((emb, cfg.model_channels), (emb, emb))
+    if len(linears) != 2 or any(tuple(w.shape) != want for (_, w), want in zip(linears, wants)):
+        return None
     sd = {}
-    for part, module in (("unet", unet), ("vae", vae), ("clip", clip)):
-        sd.update({PREFIXES[part] + k: v.float().cpu() if v.is_floating_point() else v.cpu()
+    for i, (path, w) in zip((0, 2), linears):
+        sd[f"fps_embed.{i}.weight"] = w
+        sd[f"fps_embed.{i}.bias"] = other.get(f"{path}.bias", torch.zeros(w.shape[0]))
+    return sd
+
+
+def from_jax_fps_embedder(params) -> dict[str, Any]:
+    """The JAX package's ``FPSEmbedder`` parameters (numpy leaves) -> the
+    port's state dict."""
+    p = params["params"]
+    sd = {}
+    for i in (0, 2):
+        sd[f"fps_embed.{i}.weight"] = p[f"fps_embed_{i}"]["kernel"].T
+        sd[f"fps_embed.{i}.bias"] = p[f"fps_embed_{i}"]["bias"]
+    return sd
+
+
+def lightning_state_dict(unet, vae, clip, fps=None) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of a published ``model.ckpt`` from the port's
+    modules: each part's tensors under its prefix (an FPS embedder's under
+    ``cond_stage2_model.``), floating ones in float32 on the CPU, and the
+    ``position_ids`` buffer that HF CLIP checkpoints carry beside the text
+    tower."""
+    sd = {}
+    parts = [(PREFIXES["unet"], unet), (PREFIXES["vae"], vae), (PREFIXES["clip"], clip)]
+    if fps is not None:
+        parts.append((FPS_PREFIX, fps))
+    for prefix, module in parts:
+        sd.update({prefix + k: v.float().cpu() if v.is_floating_point() else v.cpu()
                    for k, v in module.state_dict().items()})
     sd[PREFIXES["clip"] + "text_model.embeddings.position_ids"] = torch.arange(77)[None]
     return sd
@@ -79,8 +118,13 @@ def lightning_state_dict(unet, vae, clip) -> dict[str, torch.Tensor]:
 def base_t2v_yaml(cfg: VideoCrafterUNetConfig, vae_cfg: VAEConfig, video_length: int = 16) -> str:
     """``model_config.yaml`` for ``cfg`` and ``vae_cfg`` in the layout of
     VideoCrafter's published ``base_t2v`` (comments, blank lines, block and
-    flow lists), written as text."""
+    flow lists), written as text; with a ``cond_stage2_config`` when ``cfg``
+    is FPS-conditioned."""
     seq = lambda xs, pad: "".join(f"\n{pad}- {x}" for x in xs)
+    fps = """
+    cond_stage2_config:
+      target: lvdm.models.modules.condition_modules.FPSEmbedder  # 'fps' conditioning
+""" if cfg.cond_stage2_key == "temporal_context" else ""
     return f"""# VideoCrafter text2video
 model:
   target: lvdm.models.ddpm3d.LatentDiffusion
@@ -144,4 +188,4 @@ model:
 
     cond_stage_config:
       target: lvdm.models.modules.condition_modules.FrozenCLIPEmbedder
-"""
+{fps}"""

@@ -26,7 +26,8 @@ kernel refuses, and the kernel wrappers still raise on what they refuse.
   runs ``self_attention_packed``, which measured faster on the TPU);
 * ``relpos_attention``, VideoCrafter's temporal attention with
   relative-position biases in the resident (B·T, N, H·D) layout: the
-  rel-pos kernel, or ``relpos_mha_plain``.
+  rel-pos kernel, or ``relpos_mha_plain``, which alone takes a frame mask
+  (no model passes one; the JAX package sends masked calls to XLA).
 
 Every entry is differentiable: a CUDA tensor that needs a gradient runs the
 same kernel as the forward of its ``torch.autograd.Function`` (flash
@@ -125,9 +126,11 @@ def temporal_attention_packed(q, k, v, heads: int, f: int, scale: float | None =
 
 
 def relpos_attention(q, k, v, k2, v2, heads: int, frame_split: int,
-                     scale: float | None = None):
+                     scale: float | None = None, mask=None):
     """Temporal attention with relative-position biases (``relpos_mha``'s
-    contract) on sample-major (B·T, N, H·D)."""
-    if relpos_takes(q, heads):
+    contract) on sample-major (B·T, N, H·D). A ``mask`` (1 = attend,
+    broadcast over the (T, T) scores) is no part of the kernel's contract:
+    a masked call always takes the plain version, on the card too."""
+    if mask is None and relpos_takes(q, heads):
         return relpos_mha(q, k, v, k2, v2, heads, frame_split, scale)
-    return relpos_mha_plain(q, k, v, k2, v2, heads, frame_split, scale)
+    return relpos_mha_plain(q, k, v, k2, v2, heads, frame_split, scale, mask=mask)

@@ -124,9 +124,10 @@ def relpos_plan(b: int, t: int, n: int, heads: int, d: int) -> RelposPlan:
 
 
 def _relpos_math(q, k, v, k2, v2, heads: int, frame_split: int,
-                 scale: float | None) -> torch.Tensor:
+                 scale: float | None, mask=None) -> torch.Tensor:
     """The fold-and-einsum math of the plain version and of the recompute
-    backward."""
+    backward. ``mask`` (1 = attend, broadcast over the folded (B', T, T)
+    scores) adds (1 - mask)·(-1e9) to the float32 scores."""
     bt, n, hd = q.shape
     t = frame_split
     bb = bt // t
@@ -139,6 +140,8 @@ def _relpos_math(q, k, v, k2, v2, heads: int, frame_split: int,
     k2f, v2f = k2.to(q.dtype).float(), v2.to(q.dtype).float()
     sim = torch.einsum("bid,bjd->bij", qf, kf) * scale
     sim = sim + torch.einsum("btd,tsd->bts", qf, k2f) * scale
+    if mask is not None:
+        sim = sim + (1.0 - torch.as_tensor(mask, device=sim.device).float()) * -1e9
     attn = torch.softmax(sim, dim=-1).to(v.dtype).float()
     out = torch.einsum("bij,bjd->bid", attn, vf) + torch.einsum("bts,tsd->btd", attn, v2f)
     out = out.to(v.dtype)
@@ -146,8 +149,8 @@ def _relpos_math(q, k, v, k2, v2, heads: int, frame_split: int,
 
 
 def relpos_mha_plain(q, k, v, k2, v2, heads: int, frame_split: int,
-                     scale: float | None = None) -> torch.Tensor:
-    return _relpos_math(q, k, v, k2, v2, heads, frame_split, scale)
+                     scale: float | None = None, mask=None) -> torch.Tensor:
+    return _relpos_math(q, k, v, k2, v2, heads, frame_split, scale, mask)
 
 
 def relpos_mha_backward(q, k, v, k2, v2, heads: int, frame_split: int, scale: float | None,

@@ -153,9 +153,10 @@ class TemporalCrossAttention(nn.Module):
             self.relative_position_v = RelativePosition(dim_head, temporal_length)
 
     def forward(self, x, frame_split: int | None = None, mask=None):
-        if mask is not None:
-            raise NotImplementedError(
-                "temporal attention masks are not ported yet")
+        """``mask`` (broadcastable to (T, T), 1 = attend) adds
+        (1 - mask)·(-1e9) to the float32 scores; a masked call takes the
+        plain version, which the rel-pos kernel's contract does not
+        cover."""
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         shape = q.shape
         if frame_split:
@@ -168,7 +169,7 @@ class TemporalCrossAttention(nn.Module):
             v2 = self.relative_position_v(t, t).to(q.dtype).contiguous()
         else:
             k2 = v2 = q.new_zeros((t, t, self.dim_head))
-        out = relpos_attention(q, k, v, k2, v2, self.heads, t, self.dim_head ** -0.5)
+        out = relpos_attention(q, k, v, k2, v2, self.heads, t, self.dim_head ** -0.5, mask=mask)
         return self.to_out[0](out.reshape(shape))
 
 
@@ -365,6 +366,26 @@ def _make(d: VCBlockDesc, cfg: VideoCrafterUNetConfig) -> nn.Module:
     raise ValueError(d.kind)
 
 
+class FPSEmbedder(nn.Module):
+    """``cond_stage2_model``: the clip's frame rate, embedded as the time
+    step is (sinusoidal of width ``model_channels``, then Linear, SiLU,
+    Linear) into a (B, 4·model_channels) embedding that the UNet adds to
+    its time embedding."""
+
+    def __init__(self, model_channels: int):
+        super().__init__()
+        self.model_channels = model_channels
+        emb = model_channels * 4
+        self.fps_embed = nn.Sequential(nn.Linear(model_channels, emb), nn.SiLU(),
+                                       nn.Linear(emb, emb))
+
+    def forward(self, fps) -> torch.Tensor:
+        w = self.fps_embed[0].weight
+        fps = torch.as_tensor(fps, dtype=torch.float32, device=w.device).reshape(-1)
+        e = B.sinusoidal_embedding(fps, self.model_channels).to(w.dtype)
+        return self.fps_embed[2](F.silu(self.fps_embed[0](e)))
+
+
 class VideoCrafterUNet(nn.Module):
     """forward(x, t, context) -> model output.
 
@@ -372,9 +393,12 @@ class VideoCrafterUNet(nn.Module):
     t: (B,)                        timesteps
     context: (B, L, context_dim)   text conditioning, or None
     returns (B, T, H, W, out_channels) in the compute dtype
+
+    ``label_dim``: the width of an embedding-valued ``y`` other than
+    4·model_channels, which ``label_proj`` (a Linear) projects first.
     """
 
-    def __init__(self, cfg: VideoCrafterUNetConfig):
+    def __init__(self, cfg: VideoCrafterUNetConfig, label_dim: int | None = None):
         super().__init__()
         self.cfg = cfg
         self.topology = build_vc_topology(cfg)
@@ -383,6 +407,8 @@ class VideoCrafterUNet(nn.Module):
             nn.Linear(cfg.model_channels, emb), nn.SiLU(), nn.Linear(emb, emb))
         if cfg.num_classes is not None:
             self.label_emb = nn.Embedding(cfg.num_classes, emb)
+        self.label_proj = (nn.Linear(label_dim, emb)
+                           if label_dim is not None and label_dim != emb else None)
         topo = self.topology
         self.input_blocks = nn.ModuleList(
             [nn.ModuleList([_make(d, cfg) for d in entry]) for entry in topo.encoder])
@@ -423,10 +449,13 @@ class VideoCrafterUNet(nn.Module):
                 lab = self.label_emb(y)
             elif y.shape[-1] == cfg.model_channels * 4:
                 lab = y
+            elif self.label_proj is not None and y.shape[-1] == self.label_proj.in_features:
+                lab = self.label_proj(y.to(dtype))
             else:
-                raise NotImplementedError(
-                    "an embedding-valued y of another width needs the label projection, "
-                    "which is not ported yet")
+                raise ValueError(
+                    f"y of width {y.shape[-1]}: this UNet takes a (B,) label, or an embedding "
+                    f"of width {cfg.model_channels * 4}"
+                    + (f" or {self.label_proj.in_features}" if self.label_proj else ""))
             emb = emb + lab.to(emb.dtype)
         if temporal_context is not None:
             emb = emb + temporal_context.to(emb.dtype)

@@ -15,10 +15,13 @@ reference's ``render.run`` + ``process_modelscope`` orchestration):
 
 It runs one device's serial loop. A VideoCrafter model loads by name
 (``load_vc_pipeline``; ``'<videocrafter>'`` implies the family) and answers
-through its own ``infer``, with no step callback (interrupt and skip act
-between its batches). Sharded sampling (``dp/tp/sp_shards`` > 1) is refused
-until the multi-GPU slice; VideoCrafter's depth adapter and mask inpainting
-until the VideoCrafter branches slice.
+through its own ``infer``: ``vc_sample_type`` (DDIM, DPM++ 2M or the DDPM
+chain, which takes no step callback), ``vc_uc_type``, LVDM mask inpainting
+from ``args.inpainting_image``, and the depth adapter (``adapter_ckpt`` with
+``adapter_video``: an RGB video whose depth MiDaS estimates when
+``depth_ckpt`` or a ``depth_estimator`` is given, else precomputed depth
+maps). Sharded sampling (``dp/tp/sp_shards`` > 1) is refused until the
+multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -75,8 +78,7 @@ def _retention(keep_in_vram) -> str:
     raise ValueError(f"invalid keep_in_vram value {keep_in_vram!r}")
 
 
-def _refuse_later_slices(*, adapter_ckpt, adapter_video, depth_ckpt, depth_estimator, dp_shards,
-                         tp_shards, sp_shards) -> None:
+def _refuse_later_slices(*, dp_shards, tp_shards, sp_shards) -> None:
     """Name what the port does not run yet, and the slice that brings it."""
     shards = {"dp_shards": dp_shards, "tp_shards": tp_shards, "sp_shards": sp_shards}
     asked = [f"{k}={v}" for k, v in shards.items() if v > 1]
@@ -84,15 +86,38 @@ def _refuse_later_slices(*, adapter_ckpt, adapter_video, depth_ckpt, depth_estim
         raise NotImplementedError(
             f"run: {', '.join(asked)}: sharded sampling is not ported yet (the multi-GPU "
             "slice); the port samples on one device")
-    later = {
-        "adapter_ckpt": adapter_ckpt, "adapter_video": adapter_video, "depth_ckpt": depth_ckpt,
-        "depth_estimator": depth_estimator,
-    }
-    asked = [k for k, v in later.items() if v is not None]
-    if asked:
-        raise NotImplementedError(
-            f"run: {', '.join(asked)}: the VideoCrafter depth adapter is not ported yet "
-            "(the VideoCrafter branches slice)")
+
+
+def _adapter_features(pipe, args: T2VArgs, adapter_ckpt: str, adapter_video: str | None,
+                      depth_ckpt: str | None, depth_estimator):
+    """The depth adapter's features for a VideoCrafter request: the first
+    ``args.frames`` frames of ``adapter_video``, either RGB whose depth the
+    MiDaS stage estimates (``depth_ckpt`` or ``depth_estimator``), or
+    precomputed depth maps (the first channel, resized and normalised per
+    frame to [-1, 1])."""
+    import cv2
+
+    if not adapter_video:
+        raise ValueError("adapter_ckpt requires adapter_video (an RGB video when depth_ckpt is "
+                         "set, else precomputed depth maps)")
+    adapter = pipe.load_adapter(adapter_ckpt)
+    frames = vid2frames(adapter_video, start_frame=0, end_frame=args.frames)
+    if len(frames) < args.frames:
+        raise ValueError(f"{adapter_video}: the adapter video supplied {len(frames)} frames, "
+                         f"need {args.frames}")
+    if depth_ckpt or depth_estimator is not None:
+        from t2v_torch.models.depth import DepthStage
+
+        stage = (DepthStage(depth_estimator, pipe.device) if depth_estimator is not None
+                 else DepthStage.from_checkpoint(depth_ckpt, pipe.policy, device=pipe.device))
+        d = stage.video_depth(np.stack(frames), (args.height, args.width))
+    else:
+        d = np.stack([cv2.resize(f, (args.width, args.height)) for f in frames]).astype(
+            np.float32)[..., :1]
+        dmin = d.min(axis=(1, 2, 3), keepdims=True)
+        dmax = d.max(axis=(1, 2, 3), keepdims=True)
+        d = 2.0 * (d - dmin) / (dmax - dmin + 1e-7) - 1.0
+    return pipe.adapter_features(adapter, torch.as_tensor(d)[None])
 
 
 def _prepare_vid2vid(pipe: ModelScopePipeline, args: T2VArgs):
@@ -185,10 +210,7 @@ def run(
     job_state = job_state or default_state
     sanity_check_args(args)
     retention = _retention(keep_in_vram)
-    _refuse_later_slices(adapter_ckpt=adapter_ckpt, adapter_video=adapter_video,
-                         depth_ckpt=depth_ckpt,
-                         depth_estimator=depth_estimator, dp_shards=dp_shards,
-                         tp_shards=tp_shards, sp_shards=sp_shards)
+    _refuse_later_slices(dp_shards=dp_shards, tp_shards=tp_shards, sp_shards=sp_shards)
 
     global _warm_pipe
     if pipe is None:
@@ -228,10 +250,14 @@ def run(
     mask = None
     skip_steps = 0
     is_vid2vid = False
+    features_adapter = None
     try:
         if args.do_vid2vid and args.vid2vid_input:
             latents, skip_steps = _prepare_vid2vid(pipe, args)
             is_vid2vid = True
+        if adapter_ckpt and not is_ms:
+            features_adapter = _adapter_features(pipe, args, adapter_ckpt, adapter_video,
+                                                 depth_ckpt, depth_estimator)
         resolved_seed = rng_lib.resolve_seed(args.seed)
 
         for batch in range(args.batch_count):
@@ -243,20 +269,23 @@ def run(
             batch_args = args.replace(seed=resolved_seed)
 
             image_latents = None
+            vc_mask = vc_source = None
             if args.inpainting_frames > 0 and args.inpainting_image:
-                if not is_ms:
-                    raise NotImplementedError(
-                        "run: VideoCrafter mask inpainting is not ported yet (the "
-                        "VideoCrafter branches slice)")
                 import cv2
 
-                img = cv2.cvtColor(cv2.imread(args.inpainting_image), cv2.COLOR_BGR2RGB)
-                img = cv2.resize(img, (args.width, args.height))
-                gen = rng_lib.generator(resolved_seed + batch, pipe.device)
-                latents, mask, image_latents = pipe.build_inpainting_inputs(
-                    img, batch_args, gen
-                )
-                batch_args = batch_args.replace(strength=1.0)
+                img = cv2.imread(args.inpainting_image)
+                if img is None:
+                    raise ValueError(f"{args.inpainting_image}: not a readable image")
+                img = cv2.resize(cv2.cvtColor(img, cv2.COLOR_BGR2RGB), (args.width, args.height))
+                if is_ms:
+                    gen = rng_lib.generator(resolved_seed + batch, pipe.device)
+                    latents, mask, image_latents = pipe.build_inpainting_inputs(
+                        img, batch_args, gen
+                    )
+                    batch_args = batch_args.replace(strength=1.0)
+                else:
+                    # LVDM's static mask blend: mask 1 keeps the source
+                    vc_mask, vc_source = pipe.build_inpainting_inputs(img, batch_args)
 
             try:
                 if is_ms:
@@ -274,13 +303,18 @@ def run(
                         inpaint_mode=inpaint_mode,
                     )
                 else:
-                    # VideoCrafter answers its default branch and refuses
-                    # the others by name; it takes no step callback yet, so
-                    # interrupt and skip act between its batches
+                    # the DDPM chain takes no step callback: interrupt and
+                    # skip act between its batches
+                    ddpm = vc_sample_type == "ddpm"
                     res = pipe.infer(
                         batch_args,
                         batch_index=batch,
+                        callback=None if ddpm else job_state.step_callback,
+                        callback_interval=None if ddpm else callback_interval,
+                        features_adapter=features_adapter,
                         sample_type=vc_sample_type,
+                        mask=vc_mask,
+                        source_latents=vc_source,
                         uc_type=vc_uc_type,
                     )
             except SkippedException:

@@ -1,25 +1,31 @@
 """VideoCrafter (LVDM) text2video pipeline of the port.
 
-The PyTorch counterpart of the JAX package's ``pipeline/videocrafter.py``
-on its default branch: prompt -> CLIP-L text tower (77 tokens, EOS padded,
-last hidden state, no prompt weighting) -> DDIM steps with fused
-full-channel CFG on ``VideoCrafterUNet`` under the LVDM linear schedule ->
-KL-VAE decode -> uint8 RGB frames. Everything runs on one device, the card
-unless the caller asks for the CPU.
+The PyTorch counterpart of the JAX package's ``pipeline/videocrafter.py``:
+prompt -> CLIP-L text tower (77 tokens, EOS padded, last hidden state, no
+prompt weighting) -> denoising on ``VideoCrafterUNet`` under the LVDM linear
+schedule -> KL-VAE decode -> uint8 RGB frames. Everything runs on one
+device, the card unless the caller asks for the CPU.
+
+``infer`` answers every branch of the JAX pipeline: DDIM (the default, with
+full-channel CFG or the ``uc_type`` variants ``cfg_original`` /
+``cfg_ours``), the full-chain ancestral DDPM, DPM++ 2M; a step callback
+every ``callback_interval`` steps (DDIM and DPM++ 2M; the port's loop is the
+same Python loop with or without it, so a windowed request is bit-identical
+to the whole one); LVDM's static mask inpainting (``mask`` 1 keeps
+``source_latents``, from ``build_inpainting_inputs``); T2I-Adapter features
+(``load_adapter`` / ``adapter_features``); and FPS conditioning (the
+``cond_stage2`` embedder, ``embed_fps``, fed by ``args.cond_fps``).
 
 ``random_init`` builds seeded random weights (no checkpoint needed) with
 the JAX package's zero-initialised leaves; ``from_jax`` loads the JAX
 package's parameter trees through ``io/convert.py``. ``from_checkpoint``
 loads the published Lightning ``model.ckpt`` with its ``model_config.yaml``
-(UNet, SD VAE and CLIP-L from one file, weights-only and memory-mapped,
-each tensor cast on the device as it loads), ``from_native`` a directory
-the trainer saved, ``from_model_dir`` either; ``load_lora`` merges an LVDM
-LoRA into the UNet; ``release_aux`` / ``reload_aux`` drop and re-read the
-VAE and text tower ("Main Model Only"); ``load_vc_pipeline`` caches one
-loaded pipeline. The other branches of the JAX pipeline (DDPM and DPM++
-sampling, windowed execution with a callback, T2I-Adapter features, mask
-inpainting, the ``uc_type`` CFG variants, FPS conditioning) are refused by
-name until the VideoCrafter branches slice.
+(UNet, SD VAE, CLIP-L and an FPS embedder from one file, weights-only and
+memory-mapped, each tensor cast on the device as it loads), ``from_native``
+a directory the trainer saved, ``from_model_dir`` either; ``load_lora``
+merges an LVDM LoRA into the UNet; ``release_aux`` / ``reload_aux`` drop and
+re-read the VAE and text tower ("Main Model Only"); ``load_vc_pipeline``
+caches one loaded pipeline.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,14 +49,21 @@ from t2v_torch.core.config import (
     sanity_check_args,
 )
 from t2v_torch.core.dtypes import Policy
-from t2v_torch.diffusion.sampling import sample_loop
+from t2v_torch.diffusion import ddpm
+from t2v_torch.diffusion.sampling import make_eps_fn, sample_loop
 from t2v_torch.diffusion.schedules import DiffusionSchedule, beta_schedule
 from t2v_torch.io import convert, train_state, yaml_lite
-from t2v_torch.io.convert_vc import split_lightning_state_dict, vc_module_index
+from t2v_torch.io.convert_vc import (
+    fps_embedder_state,
+    split_lightning_state_dict,
+    vc_module_index,
+)
+from t2v_torch.models.adapter import Adapter, AdapterConfig, infer_adapter_config
 from t2v_torch.models.conditioning import normalize_cond, route_conditioning
 from t2v_torch.models.vae import AutoencoderKL
-from t2v_torch.models.videocrafter_unet import VideoCrafterUNet
+from t2v_torch.models.videocrafter_unet import FPSEmbedder, VideoCrafterUNet
 from t2v_torch.pipeline import pipeline as ms_pipeline
+from t2v_torch.pipeline.keyframes import KeyFrameSeries
 from t2v_torch.pipeline.pipeline import (
     InferResult,
     _load_module,
@@ -62,6 +76,8 @@ from t2v_torch.pipeline.pipeline import (
 )
 from t2v_torch.text.clip import HFCLIPTextModel
 from t2v_torch.text.tokenizer import CLIPTokenizer
+
+SAMPLE_TYPES = ("ddim", "ddpm", "dpm++ 2m")
 
 # sub-modules whose weights the JAX package initialises to zero
 _TEMPORAL = tuple(f"{a}.{p}" for a in ("attn1_tmp", "attn2_tmp")
@@ -101,6 +117,8 @@ class VideoCrafterPipeline:
     # directory, or the Lightning model.ckpt
     model_dir: str | None = None
     ckpt_path: str | None = None
+    # the cond_stage2 FPS embedder of an FPS-conditioned model
+    fps_embedder: FPSEmbedder | None = None
 
     @staticmethod
     def configs(cfg: VideoCrafterUNetConfig | None, tokenizer: CLIPTokenizer,
@@ -122,17 +140,22 @@ class VideoCrafterPipeline:
         return cfg, vae_cfg, clip_cfg
 
     @classmethod
-    def _build(cls, cfg, vae_cfg, clip_cfg, tokenizer, policy, device, fill) -> "VideoCrafterPipeline":
+    def _build(cls, cfg, vae_cfg, clip_cfg, tokenizer, policy, device, fill, fill_fps,
+               label_dim=None) -> "VideoCrafterPipeline":
         dev = resolve_device(device)
         with torch.device(dev):
-            unet, vae, clip = VideoCrafterUNet(cfg), AutoencoderKL(vae_cfg), HFCLIPTextModel(clip_cfg)
+            unet, vae, clip = (VideoCrafterUNet(cfg, label_dim), AutoencoderKL(vae_cfg),
+                               HFCLIPTextModel(clip_cfg))
+            fps = FPSEmbedder(cfg.model_channels) if _fps_conditioned(cfg) else None
         fill(unet, vae, clip)
+        if fps is not None:
+            fill_fps(fps)
+            fps = fps.to(policy.param_dtype).eval()
         dtype = policy.param_dtype
         unet, vae, clip = (m.to(dtype).eval() for m in (unet, vae, clip))
-        schedule = DiffusionSchedule.from_betas(
-            beta_schedule("linear", cfg.num_timesteps, cfg.linear_start, cfg.linear_end))
         return cls(cfg=cfg, vae_cfg=vae_cfg, clip_cfg=clip_cfg, policy=policy, unet=unet, vae=vae,
-                   clip=clip, tokenizer=tokenizer, schedule=schedule, device=dev)
+                   clip=clip, tokenizer=tokenizer, schedule=_schedule(cfg), device=dev,
+                   fps_embedder=fps)
 
     @classmethod
     def random_init(
@@ -144,13 +167,16 @@ class VideoCrafterPipeline:
         small_aux: bool | None = None,
         *,
         clip_cfg: CLIPTextConfig | None = None,
+        label_dim: int | None = None,
     ) -> "VideoCrafterPipeline":
         """Random-weight pipeline (tests and smoke runs; no checkpoint on
         disk needed): the full-width model unless ``cfg`` says otherwise
         (``VideoCrafterUNetConfig().tiny()`` for a CPU-sized one).
         ``small_aux`` picks the tiny VAE and text tower beside any UNet;
         ``clip_cfg`` (e.g. CLIP-L with its published 49,408-row embedding)
-        replaces the tower's config. The tokenizer is
+        replaces the tower's config; ``label_dim`` gives the UNet a
+        ``label_proj`` for embedding-valued ``y`` of that width. An
+        FPS-conditioned ``cfg`` gets a seeded FPS embedder. The tokenizer is
         ``CLIPTokenizer.for_tests()``."""
         tokenizer = CLIPTokenizer.for_tests()
         cfg, vae_cfg, clip_cfg = cls.configs(cfg, tokenizer, small_aux, clip_cfg)
@@ -160,15 +186,19 @@ class VideoCrafterPipeline:
             init_weights(vae, seed + 1)
             init_weights(clip, seed + 2)
 
-        return cls._build(cfg, vae_cfg, clip_cfg, tokenizer, policy, device, fill)
+        return cls._build(cfg, vae_cfg, clip_cfg, tokenizer, policy, device, fill,
+                          lambda fps: init_weights(fps, seed + 3), label_dim)
 
     @classmethod
     def from_jax(
         cls, unet_params, vae_params, clip_params, cfg: VideoCrafterUNetConfig,
-        policy: Policy = Policy(), device: torch.device | str = "cuda",
+        policy: Policy = Policy(), device: torch.device | str = "cuda", fps_params=None,
     ) -> "VideoCrafterPipeline":
         """Pipeline on the JAX package's parameter trees (numpy leaves) of a
-        ``random_init`` pipeline with this UNet config."""
+        ``random_init`` pipeline with this UNet config (and its FPS
+        embedder's, ``fps_params``, when the config is FPS-conditioned)."""
+        from t2v_torch.io.convert_vc import from_jax_fps_embedder
+
         tokenizer = CLIPTokenizer.for_tests()
         cfg, vae_cfg, clip_cfg = cls.configs(cfg, tokenizer)
 
@@ -177,7 +207,8 @@ class VideoCrafterPipeline:
             convert.load_into(vae, convert.from_jax_vae(vae_params, vae_cfg))
             convert.load_into(clip, convert.from_jax_clip(clip_params, clip_cfg, layout="hf"))
 
-        return cls._build(cfg, vae_cfg, clip_cfg, tokenizer, policy, device, fill)
+        return cls._build(cfg, vae_cfg, clip_cfg, tokenizer, policy, device, fill,
+                          lambda fps: convert.load_into(fps, from_jax_fps_embedder(fps_params)))
 
     @classmethod
     def from_checkpoint(
@@ -198,14 +229,17 @@ class VideoCrafterPipeline:
         built on the meta device and each tensor cast to the policy's dtype
         on the device one at a time: no float32 copy reaches the card.
         The text tower is CLIP-L with as many layers as its keys hold. An
-        FPS-conditioned config (``cond_stage2_config``) is refused."""
+        FPS-conditioned config (``cond_stage2_config``) loads its embedder
+        from the ``cond_stage2_model.*`` weights; a checkpoint without them
+        gets a seeded fresh embedder and a warning, as the JAX package's
+        loader does."""
         dev = resolve_device(device)
         config_path = config_path or _find_config(ckpt_path)
         yaml_cfg = yaml_lite.load_file(config_path)
         cfg = VideoCrafterUNetConfig.from_yaml_dict(yaml_cfg)
-        _refuse_fps(cfg, config_path)
         parts = split_lightning_state_dict(convert.load_torch_checkpoint(ckpt_path))
-        unet = _load_module(lambda: VideoCrafterUNet(cfg), parts["unet"], policy, dev)
+        unet = _load_module(lambda: VideoCrafterUNet(cfg, _label_dim(parts["unet"])),
+                            parts["unet"], policy, dev)
         sd_clip = _hf_clip_keys(parts["clip"])
         layers = 1 + max(int(k.split("encoder.layers.")[1].split(".")[0])
                          for k in sd_clip if "encoder.layers." in k)
@@ -214,6 +248,8 @@ class VideoCrafterPipeline:
                            CLIPTokenizer.find_and_load(os.path.dirname(ckpt_path),
                                                        os.path.dirname(os.path.dirname(ckpt_path))),
                            dev, ckpt_path=ckpt_path)
+        pipe.fps_embedder = _load_fps_embedder(cfg, fps_embedder_state(parts["other"], cfg),
+                                               policy, dev, ckpt_path)
         pipe._load_aux(parts["vae"], sd_clip)
         if lora_path:
             skipped = pipe.load_lora(lora_path, lora_scale)
@@ -225,20 +261,23 @@ class VideoCrafterPipeline:
                     device: torch.device | str = "cuda") -> "VideoCrafterPipeline":
         """Load what ``io/train_state.save_weights`` wrote for the
         VideoCrafter family: the configs from ``t2v_torch.json``, the weights
-        from ``{unet,vae,clip}.safetensors``, the vocab beside them."""
+        from ``{unet,vae,clip}.safetensors``, the vocab beside them. The
+        trainer saves no FPS embedder: an FPS-conditioned config gets a
+        seeded fresh one and a warning."""
         dev = resolve_device(device)
         meta, sds = train_state.load_weights(model_dir, only=("unet",))
         if meta.get("model_family") != "videocrafter":
             raise ValueError(f"{model_dir} holds a {meta.get('model_family')} checkpoint; load "
                              "it with ModelScopePipeline.from_native")
         cfg = config_from_dict(VideoCrafterUNetConfig, meta["unet_cfg"])
-        _refuse_fps(cfg, model_dir)
-        unet = _load_module(lambda: VideoCrafterUNet(cfg), sds["unet"], policy, dev)
+        unet = _load_module(lambda: VideoCrafterUNet(cfg, _label_dim(sds["unet"])), sds["unet"],
+                            policy, dev)
         tokenizer = CLIPTokenizer.find_and_load(model_dir,
                                                 os.path.dirname(os.path.abspath(model_dir)))
         pipe = cls._loaded(cfg, config_from_dict(VAEConfig, meta["vae_cfg"]),
                            config_from_dict(CLIPTextConfig, meta["clip_cfg"]), policy, unet,
                            tokenizer, dev, model_dir=model_dir)
+        pipe.fps_embedder = _load_fps_embedder(cfg, None, policy, dev, model_dir)
         pipe.reload_aux()
         return pipe
 
@@ -256,11 +295,9 @@ class VideoCrafterPipeline:
 
     @classmethod
     def _loaded(cls, cfg, vae_cfg, clip_cfg, policy, unet, tokenizer, dev, **where):
-        schedule = DiffusionSchedule.from_betas(
-            beta_schedule("linear", cfg.num_timesteps, cfg.linear_start, cfg.linear_end))
         return cls(cfg=cfg, vae_cfg=vae_cfg, clip_cfg=clip_cfg, policy=policy, unet=unet,
-                   vae=None, clip=None, tokenizer=tokenizer, schedule=schedule, device=dev,
-                   **where)
+                   vae=None, clip=None, tokenizer=tokenizer, schedule=_schedule(cfg),
+                   device=dev, **where)
 
     def load_lora(self, lora_path: str, scale: float = 1.0) -> list[str]:
         """Merge a cloneofsimo / LVDM LoRA file (``lora_up`` / ``lora_down``,
@@ -341,8 +378,8 @@ class VideoCrafterPipeline:
         return self.clip(tokens)
 
     def make_apply_fn(self, features_adapter=None, temporal_context=None):
-        """(x, t, ctx) -> eps, routing ctx through the model's
-        conditioning key."""
+        """(x, t, ctx) -> eps, routing ctx through the model's conditioning
+        key, with adapter features and the FPS embedding when given."""
         return _routed_apply(self.unet, self.cfg.conditioning_key, features_adapter,
                              temporal_context)
 
@@ -354,6 +391,69 @@ class VideoCrafterPipeline:
     def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
         """(F, h, w, 4) scaled latents -> (F, H, W, 3) uint8 RGB."""
         return decode_latents(self.vae, self.vae_cfg, latents, float(self.cfg.scale_factor))
+
+    def apply_model(self, x, t, cond, features_adapter=None):
+        """LVDM's ``apply_model``: ``cond`` is a bare context tensor, a list,
+        or a conditioning dict (``c_concat`` / ``c_crossattn`` / ``c_adm`` /
+        ``s`` / ``temporal_context``), routed by the conditioning key."""
+        ck = self.cfg.conditioning_key
+        x2, kw = route_conditioning(ck, x, normalize_cond(ck, cond))
+        return self.unet(x2, t, kw["context"], features_adapter=features_adapter, y=kw["y"],
+                         temporal_context=kw["temporal_context"])
+
+    # ------------------------------------------------------------------
+    # T2I-Adapter and FPS conditioning
+
+    def load_adapter(self, adapter_path: str, adapter_cfg: AdapterConfig | None = None) -> Adapter:
+        """A T2I-Adapter checkpoint (a torch file, optionally under
+        ``state_dict``, or ``.safetensors``; an ``adapter.`` prefix is
+        stripped) on the pipeline's device and dtype. The config is read
+        from the keys unless given. A missing or malformed file raises,
+        naming it."""
+        if adapter_path.endswith(".safetensors"):
+            from t2v_torch.io.safetensors_io import load_safetensors
+
+            sd, _ = load_safetensors(adapter_path)
+        else:
+            sd = convert.load_torch_checkpoint(adapter_path)
+        sd = sd.get("state_dict", sd)
+        sd = {(k[len("adapter."):] if k.startswith("adapter.") else k): v for k, v in sd.items()}
+        try:
+            cfg = adapter_cfg or infer_adapter_config(sd)
+            return _load_module(lambda: Adapter(cfg), sd, self.policy, self.device)
+        except (KeyError, ValueError, RuntimeError) as e:
+            raise ValueError(f"{adapter_path}: not a T2I-Adapter checkpoint ({e})") from None
+
+    @torch.no_grad()
+    def adapter_features(self, adapter: Adapter, depth_video) -> tuple[torch.Tensor, ...]:
+        """The adapter's feature pyramid of every frame. ``depth_video``:
+        (B, T, H, W, C) in [-1, 1], depth maps normalised per frame. The
+        frames fold into the batch for one adapter pass; each feature comes
+        back as (B, T, h, w, c) in the UNet's channels-last layout."""
+        d = torch.as_tensor(depth_video, dtype=torch.float32).to(self.device)
+        b, t = d.shape[:2]
+        feats = adapter(d.reshape(b * t, *d.shape[2:]))
+        return tuple(f.reshape(b, t, *f.shape[1:]) for f in feats)
+
+    @torch.no_grad()
+    def embed_fps(self, fps) -> torch.Tensor:
+        """The (1, 4·model_channels) ``temporal_context`` embedding of a
+        frame rate, from the model's FPS embedder."""
+        if self.fps_embedder is None:
+            raise ValueError("this model has no cond_stage2 FPS embedder "
+                             "(cfg.cond_stage2_key is unset)")
+        return self.fps_embedder(torch.tensor([float(fps)]))
+
+    def _resolve_temporal_context(self, args: T2VArgs):
+        """``args.cond_fps`` -> the FPS embedding on an FPS-conditioned
+        model (which requires it), else None."""
+        if not _fps_conditioned(self.cfg):
+            return None
+        if args.cond_fps is None:
+            raise ValueError("this VideoCrafter model is FPS-conditioned: set cond_fps")
+        return self.embed_fps(args.cond_fps)
+
+    # ------------------------------------------------------------------
 
     def infer(
         self,
@@ -368,25 +468,30 @@ class VideoCrafterPipeline:
         source_latents=None,
         uc_type: str | None = None,
         noise: torch.Tensor | None = None,
+        step_noise=None,
+        inpaint_noise=None,
+        ddpm_noise=None,
     ) -> InferResult:
-        """Answer one request on the default branch: whole-loop DDIM with
-        full-channel CFG. ``noise`` replaces the seeded starting latent
-        (tests hand both packages the same numpy noise). The arguments of
-        the other branches are accepted and refused by name."""
-        later = {
-            "callback": callback is not None or callback_interval is not None,
-            "sample_type other than 'ddim'": sample_type != "ddim",
-            "features_adapter": features_adapter is not None,
-            "mask / source_latents": mask is not None or source_latents is not None,
-            "uc_type": uc_type is not None,
-            "cond_fps on an FPS-conditioned model": self.cfg.cond_stage2_key is not None,
-        }
-        asked = [name for name, given in later.items() if given]
-        if asked:
-            raise NotImplementedError(
-                f"VideoCrafterPipeline.infer: {', '.join(asked)} not ported yet (the "
-                "VideoCrafter branches slice); infer answers the default DDIM txt2vid branch")
+        """Answer one request.
+
+        sample_type: "ddim" (the default), "ddpm" (the full ancestral chain,
+        no callback) or "dpm++ 2m" (txt2vid only: no mask, no uc_type).
+        callback(done) runs every ``callback_interval`` steps and after the
+        last (it may raise to stop the request). features_adapter: the
+        adapter's feature pyramid (``adapter_features``). mask: (1, F, h, w,
+        C), 1 keeps ``source_latents`` (``build_inpainting_inputs``), blended
+        back after every DDIM step. uc_type: None (full CFG), "cfg_original"
+        or "cfg_ours". ``noise`` replaces the seeded starting latent, and
+        ``step_noise[i]`` / ``inpaint_noise[i]`` / ``ddpm_noise[i]`` the
+        seeded draws of step i (tests hand in the JAX package's)."""
         sanity_check_args(args)
+        if sample_type not in SAMPLE_TYPES:
+            raise ValueError(f"unknown sample_type {sample_type!r} (one of {SAMPLE_TYPES})")
+        if sample_type == "dpm++ 2m" and (mask is not None or uc_type):
+            raise ValueError("sample_type='dpm++ 2m' does not support mask inpainting or uc_type "
+                             "CFG variants — use 'ddim'")
+        if sample_type == "ddpm" and callback is not None:
+            raise ValueError("sample_type='ddpm' runs the whole chain and takes no callback")
         self._require_aux()
         seed = rng_lib.resolve_seed(args.seed)
         batch_seed = rng_lib.batch_seed(seed, batch_index) if args.seed != -1 else seed
@@ -397,6 +502,7 @@ class VideoCrafterPipeline:
         t0 = time.perf_counter()
         cond = self.encode_text([args.prompt])
         uncond = self.encode_text([args.n_prompt])
+        tc = self._resolve_temporal_context(args)
         _sync(dev)
         t_text = time.perf_counter() - t0
 
@@ -404,12 +510,29 @@ class VideoCrafterPipeline:
         gen = rng_lib.generator(batch_seed, dev)
         if noise is None:
             noise = rng_lib.latent_noise(gen, shape, dev)
-        x0 = sample_loop(
-            self.make_apply_fn(), self.schedule, steps=args.steps, shape=shape, cond=cond,
-            uncond=uncond, guidance_scale=args.cfg_scale, eta=args.eta, sampler_name="DDIM",
-            generator=gen, noise=noise.to(dev), device=dev,
-            parameterization=self.cfg.parameterization,
-        )
+        noise = noise.to(dev)
+        apply_fn = self.make_apply_fn(features_adapter, tc)
+        if sample_type == "ddpm":
+            eps_fn = make_eps_fn(apply_fn, cond, uncond, args.cfg_scale, "full",
+                                 self.cfg.parameterization, self.schedule)
+            # LVDM's latent diffusion does not clip x0 (latents exceed +-1)
+            x0 = ddpm.sample(eps_fn, self.schedule, noise, generator=gen,
+                             noise_table=ddpm_noise, clip_denoised=False)
+        else:
+            # the blend needs both; a mask alone selects it and blends nothing
+            blend = mask is not None
+            x0 = sample_loop(
+                apply_fn, self.schedule, steps=args.steps, shape=shape, cond=cond,
+                uncond=uncond, guidance_scale=args.cfg_scale, eta=args.eta,
+                sampler_name="DPM++ 2M" if sample_type == "dpm++ 2m" else "DDIM",
+                generator=gen, noise=noise, device=dev,
+                mask=mask.to(dev) if blend else None,
+                image_latents=None if source_latents is None else source_latents.to(dev),
+                inpaint_mode="lvdm_static" if blend else "initial_only",
+                cfg_combine_mode=uc_type, parameterization=self.cfg.parameterization,
+                callback=callback, callback_interval=callback_interval,
+                step_noise=step_noise, inpaint_noise=inpaint_noise,
+            )
         _sync(dev)
         t_sample = time.perf_counter() - t0
 
@@ -421,6 +544,23 @@ class VideoCrafterPipeline:
             timings={"text": t_text, "sample": t_sample, "decode": t_decode},
         )
 
+    def build_inpainting_inputs(self, image_rgb, args: T2VArgs) -> tuple[torch.Tensor, torch.Tensor]:
+        """img2vid inputs of LVDM's static mask blend: (mask, source_latents),
+        each (1, F, h, w, C) float32. The keyframe weights of
+        ``args.inpainting_weights`` say how much of frame i is generated, so
+        frame i keeps the source with weight 1 - w_i (mask 1 keeps); the
+        source image (H, W, 3 uint8) is encoded once per frame."""
+        ss = _spatial_scale(self.vae_cfg)
+        lat_h, lat_w = args.height // ss, args.width // ss
+        keys = KeyFrameSeries(args.frames, args.seed, max(args.inpainting_frames, 1))
+        weights = keys.inpainting_weights(args.inpainting_weights)
+        img = np.asarray(image_rgb, np.float32) / 255.0 * 2.0 - 1.0
+        source_latents = self.compute_latents(np.repeat(img[None], args.frames, axis=0))
+        keep = (1.0 - np.asarray(weights, np.float64)).astype(np.float32)
+        mask = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+            keep.reshape(1, -1, 1, 1, 1), (1, args.frames, lat_h, lat_w, self.cfg.in_channels))))
+        return mask.to(self.device), source_latents
+
     def create_infotext(self, args: T2VArgs, seed: int) -> str:
         return (
             f"{args.prompt}\nNegative prompt: {args.n_prompt}\n"
@@ -428,6 +568,36 @@ class VideoCrafterPipeline:
             f"Seed: {seed}, Size: {args.width}x{args.height}, "
             f"Frames: {args.frames}, Model: VideoCrafter"
         )
+
+
+def _fps_conditioned(cfg: VideoCrafterUNetConfig) -> bool:
+    return cfg.cond_stage2_key == "temporal_context"
+
+
+def _schedule(cfg: VideoCrafterUNetConfig) -> DiffusionSchedule:
+    return DiffusionSchedule.from_betas(
+        beta_schedule("linear", cfg.num_timesteps, cfg.linear_start, cfg.linear_end))
+
+
+def _label_dim(sd) -> int | None:
+    """The width of ``y`` that a UNet state dict's ``label_proj`` takes."""
+    w = sd.get("label_proj.weight")
+    return None if w is None else int(w.shape[1])
+
+
+def _load_fps_embedder(cfg, sd, policy, dev, where: str) -> FPSEmbedder | None:
+    """The FPS embedder of an FPS-conditioned ``cfg`` from ``sd``, else a
+    seeded fresh one with a warning; None for other models."""
+    if not _fps_conditioned(cfg):
+        return None
+    if sd is not None:
+        return _load_module(lambda: FPSEmbedder(cfg.model_channels), sd, policy, dev)
+    warnings.warn(f"{where}: the model is FPS-conditioned (cond_stage2) but carries no "
+                  "compatible cond_stage2_model weights; initialising the FPS embedder randomly")
+    with torch.device(dev):
+        fps = FPSEmbedder(cfg.model_channels)
+    init_weights(fps, 0)
+    return fps.to(policy.param_dtype).eval()
 
 
 def _find_config(ckpt_path: str) -> str:
@@ -439,13 +609,6 @@ def _find_config(ckpt_path: str) -> str:
         if os.path.exists(cand):
             return cand
     raise FileNotFoundError(f"model_config.yaml not found near {ckpt_path}")
-
-
-def _refuse_fps(cfg: VideoCrafterUNetConfig, where: str) -> None:
-    if cfg.cond_stage2_key is not None:
-        raise NotImplementedError(
-            f"{where}: an FPS-conditioned VideoCrafter model (cond_stage2_config) is not "
-            "ported yet (the VideoCrafter branches slice)")
 
 
 def _hf_clip_keys(sd) -> dict:

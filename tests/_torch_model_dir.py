@@ -92,14 +92,18 @@ def write_model_dir(pipe: ModelScopePipeline, out: Path, unet_dtype=torch.float3
 VC_UNET_CFG = dataclasses.replace(VideoCrafterUNetConfig().tiny(), context_dim=768)
 
 
-def vc_source_pipeline(seed: int = 0) -> VideoCrafterPipeline:
+def vc_source_pipeline(seed: int = 0, fps: bool = False) -> VideoCrafterPipeline:
     """A seeded float32 CPU VideoCrafter pipeline that a published-layout
-    checkpoint can carry: the tiny UNet at CLIP-L's width, the tiny VAE and
-    a one-layer CLIP-L tower (width 768, 12 heads, the published
-    49,408-row embedding, as both packages' loaders build it); the vocab
-    file's tokenizer; zero leaves perturbed."""
+    checkpoint can carry: the tiny UNet at CLIP-L's width (FPS-conditioned,
+    with its embedder, when ``fps``), the tiny VAE and a one-layer CLIP-L
+    tower (width 768, 12 heads, the published 49,408-row embedding, as both
+    packages' loaders build it); the vocab file's tokenizer; zero leaves
+    perturbed."""
+    cfg = VC_UNET_CFG
+    if fps:
+        cfg = dataclasses.replace(cfg, cond_stage2_key="temporal_context")
     pipe = VideoCrafterPipeline.random_init(
-        VC_UNET_CFG, seed=seed, device="cpu", small_aux=True,
+        cfg, seed=seed, device="cpu", small_aux=True,
         clip_cfg=dataclasses.replace(CLIPTextConfig.clip_l_14(), layers=1))
     pipe.tokenizer = CLIPTokenizer.from_vocab_file(str(VOCAB))
     with torch.no_grad():
@@ -126,23 +130,19 @@ def small_vc_pipeline(seed: int = 0) -> VideoCrafterPipeline:
 def vc_model_config(cfg: VideoCrafterUNetConfig, vae_cfg: VAEConfig, fps: bool = False) -> str:
     """``model_config.yaml`` in the published ``base_t2v`` layout, with a
     ``cond_stage2_config`` when ``fps``."""
-    text = base_t2v_yaml(cfg, vae_cfg)
     if fps:
-        text += """
-    cond_stage2_config:
-      target: lvdm.models.modules.condition_modules.FPSEmbedder  # 'fps' conditioning
-"""
-    return text
+        cfg = dataclasses.replace(cfg, cond_stage2_key="temporal_context")
+    return base_t2v_yaml(cfg, vae_cfg)
 
 
 def write_vc_dir(pipe: VideoCrafterPipeline, out: Path, fps: bool = False) -> Path:
     """A VideoCrafter directory in the published layout: ``model.ckpt``
-    (float32, Lightning: ``lightning_state_dict`` and an EMA key in
-    ``state_dict``, plus ``global_step`` / ``epoch``), ``model_config.yaml``
-    and the vocab."""
+    (float32, Lightning: ``lightning_state_dict`` with the pipeline's FPS
+    embedder if it has one, and an EMA key in ``state_dict``, plus
+    ``global_step`` / ``epoch``), ``model_config.yaml`` and the vocab."""
     out.mkdir(parents=True, exist_ok=True)
     (out / "model_config.yaml").write_text(vc_model_config(pipe.cfg, pipe.vae_cfg, fps))
-    sd = lightning_state_dict(pipe.unet, pipe.vae, pipe.clip)
+    sd = lightning_state_dict(pipe.unet, pipe.vae, pipe.clip, pipe.fps_embedder)
     sd["model_ema.decay"] = torch.tensor(0.9999)
     torch.save({"state_dict": sd, "global_step": 7, "epoch": 1}, out / "model.ckpt")
     shutil.copy(VOCAB, out / "bpe_simple_vocab_16e6.txt.gz")

@@ -170,6 +170,11 @@ def test_output_options_and_metadata_reader(tiny_pipe, tmp_path, warm_pipe_reset
 
 
 def test_refusals_name_what_and_which_slice(tmp_path, tiny_pipe, warm_pipe_reset, monkeypatch):
+    """What the port refuses (textual inversion on VideoCrafter, the depth
+    adapter on ModelScope, sharded sampling until the multi-GPU slice), and
+    VideoCrafter's branches, which answer through ``run``."""
+    import cv2
+
     from _torch_model_dir import VOCAB, small_vc_pipeline
     from t2v_torch.cli.generate import main
     from t2v_torch.core.config import VideoCrafterUNetConfig
@@ -180,12 +185,8 @@ def test_refusals_name_what_and_which_slice(tmp_path, tiny_pipe, warm_pipe_reset
     cli_cases = [
         (["--model-type", "VideoCrafter", "--embeddings-dir", "e"],
          "--embeddings-dir: textual inversion splices into the ModelScope text encoder"),
-        (["--model-type", "VideoCrafter", "--model-dir", "m", "--vc-sample-type", "ddpm",
-          "--uc-type", "cfg_ours"],
-         "--vc-sample-type ddpm: .*VideoCrafter branches slice.*--uc-type: "),
-        (["--adapter-ckpt", "a"], "--adapter-ckpt: the depth adapter"),
-        (["--adapter-video", "v"], "--adapter-video: the depth adapter"),
-        (["--depth-ckpt", "d"], "--depth-ckpt: the depth adapter"),
+        (["--adapter-ckpt", "a"], "--adapter-ckpt: the depth adapter conditions VideoCrafter"),
+        (["--adapter-ckpt", "a", "--dp-shards", "2"], "--adapter-ckpt: .*; --dp-shards 2"),
         (["--dp-shards", "2"], "--dp-shards 2: sharded sampling .* multi-GPU slice"),
         (["--tp-shards", "2"], "--tp-shards 2"), (["--sp-shards", "4"], "--sp-shards 4"),
     ]
@@ -199,8 +200,8 @@ def test_refusals_name_what_and_which_slice(tmp_path, tiny_pipe, warm_pipe_reset
     for extra, match in [
         (dict(dp_shards=2), "dp_shards=2: sharded sampling is not ported yet .the multi-GPU slice"),
         (dict(tp_shards=2, sp_shards=2), "tp_shards=2, sp_shards=2"),
-        (dict(adapter_ckpt="a"), "adapter_ckpt: the VideoCrafter depth adapter"),
-        (dict(depth_ckpt="d"), "depth_ckpt"),
+        (dict(adapter_ckpt="a", dp_shards=2), "dp_shards=2"),
+        (dict(depth_ckpt="d", sp_shards=2), "sp_shards=2"),
     ]:
         with pytest.raises(NotImplementedError, match=match):
             run(args, out, pipe=tiny_pipe, **kw, **extra)
@@ -222,11 +223,18 @@ def test_refusals_name_what_and_which_slice(tmp_path, tiny_pipe, warm_pipe_reset
     vc = VideoCrafterPipeline.random_init(VideoCrafterUNetConfig().tiny(), device="cpu")
     res = run(args, out, pipe=vc, **kw)
     assert "Model: VideoCrafter" in res.infotexts[0]
-    # ... and refuses the others by name
-    with pytest.raises(NotImplementedError, match="sample_type other than 'ddim'"):
-        run(args, out, pipe=vc, vc_sample_type="ddpm", **kw)
-    with pytest.raises(NotImplementedError, match="mask inpainting"):
+    # ... and the others: DPM++ 2M, mask inpainting from an image file, and
+    # the adapter's own argument check
+    res = run(args, out, pipe=vc, vc_sample_type="dpm++ 2m", **kw)
+    assert "Model: VideoCrafter" in res.infotexts[0]
+    image = str(tmp_path / "i.png")
+    cv2.imwrite(image, np.random.default_rng(0).integers(0, 255, (32, 32, 3), dtype=np.uint8))
+    res = run(args.replace(inpainting_frames=2, inpainting_image=image), out, pipe=vc, **kw)
+    assert "Model: VideoCrafter" in res.infotexts[0]
+    with pytest.raises(ValueError, match="not a readable image"):
         run(args.replace(inpainting_frames=1, inpainting_image="i.png"), out, pipe=vc, **kw)
+    with pytest.raises(ValueError, match="requires adapter_video"):
+        run(args, out, pipe=vc, adapter_ckpt="a", **kw)
 
 
 def test_api_handlers_match_jax(monkeypatch, tmp_path):

@@ -217,9 +217,11 @@ def test_from_checkpoint_matches_jax(vc_dir):
 
 def test_from_native_from_model_dir_and_refusals(vc_dir, tmp_path):
     """The trainer's layout round-trips through ``from_model_dir`` and
-    keeps its family; an FPS-conditioned config, a checkpoint that pickles
-    a non-tensor global and a directory of the other family are refused by
-    name (the JAX reader refuses the same global)."""
+    keeps its family; an FPS-conditioned config over a checkpoint without
+    ``cond_stage2_model`` weights loads a fresh embedder with a warning and
+    then needs ``cond_fps``; a checkpoint that pickles a non-tensor global
+    and a directory of the other family are refused by name (the JAX reader
+    refuses the same global)."""
     src, model_dir, _ = vc_dir
     saved = train_state.save_weights(
         str(tmp_path / "native"), unet_params=dict(src.unet.named_parameters()), vae=src.vae,
@@ -243,10 +245,15 @@ def test_from_native_from_model_dir_and_refusals(vc_dir, tmp_path):
 
     fps = tmp_path / "fps"
     fps.mkdir()
-    (fps / "model.ckpt").symlink_to(model_dir / "model.ckpt")
+    for name in ("model.ckpt", "bpe_simple_vocab_16e6.txt.gz"):
+        (fps / name).symlink_to(model_dir / name)
     (fps / "model_config.yaml").write_text(vc_model_config(src.cfg, src.vae_cfg, fps=True))
-    with pytest.raises(NotImplementedError, match="FPS-conditioned .*VideoCrafter branches"):
-        VideoCrafterPipeline.from_model_dir(str(fps), Policy.fp32(), device="cpu")
+    with pytest.warns(UserWarning, match="FPS-conditioned .*no compatible cond_stage2_model"):
+        fps_pipe = VideoCrafterPipeline.from_model_dir(str(fps), Policy.fp32(), device="cpu")
+    assert fps_pipe.fps_embedder is not None
+    with pytest.raises(ValueError, match="FPS-conditioned: set cond_fps"):
+        fps_pipe.infer(args)
+    assert fps_pipe.infer(args.replace(cond_fps=8)).frames.shape == src.infer(args).frames.shape
     pickled = tmp_path / "pickled"
     pickled.mkdir()
     (pickled / "model_config.yaml").write_text(vc_model_config(src.cfg, src.vae_cfg))

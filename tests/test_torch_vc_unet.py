@@ -79,8 +79,11 @@ def test_temporal_cross_attention_without_relative_position_and_mask():
     with torch.no_grad():
         got = mod(torch.from_numpy(x), frame_split=t).numpy()
     np.testing.assert_allclose(got, want, **TOL)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        mod(torch.from_numpy(x), frame_split=t, mask=torch.ones(t, t))
+    causal = np.tril(np.ones((t, t), np.float32))
+    want = np.asarray(jmod.apply(params, jnp.asarray(x), mask=jnp.asarray(causal)))
+    with torch.no_grad():
+        got = mod(torch.from_numpy(x), frame_split=t, mask=torch.from_numpy(causal)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_zero_initialised_temporal_attention_is_identity_on_time():
