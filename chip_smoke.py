@@ -93,11 +93,23 @@ and prints no result line):
    ``load_vc_pipeline`` (8 and 24 frames a second differ, none raises), and
    the depth adapter with MiDaS from files through ``run`` and the CLI;
    every request's launches against the topology's;
-10. print the card's name and power limit, one ``{"kernels": [...]}`` line,
+10. sharded sampling (``drive_parallel``), both models at full width: two
+    serial batches through ``run`` and the same request with
+    ``dp_shards=2`` in one process (one batched loop; its first, middle and
+    last UNet calls against the serial calls on the same rows, its frames
+    by relative RMS, a planted fault in the batch caught by that frame
+    gate); two ranks this script starts (``--parallel-rank``)
+    sharing the card over gloo: dp = 2 frames bit-identical to the serial
+    ones, tp = 2 and sp = 2 UNet calls against the one-rank call on the
+    same inputs, every request's launches a rank against the topology's;
+    then ``python -m torch.distributed.run --standalone --nproc-per-node 2
+    -m t2v_torch.cli.generate --dp-shards 2`` on a directory saved from
+    the serial pipeline (rank 0 writes both batches once, bit-identical);
+11. print the card's name and power limit, one ``{"kernels": [...]}`` line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a GPU, and in a directory without the port.
-``--only kernels|small|modelscope|generate|modes|videocrafter|vcgenerate|vcbranches|train``
+``--only kernels|small|modelscope|generate|modes|videocrafter|vcgenerate|vcbranches|parallel|train``
 runs the build and those groups of phases (a comma-separated list, for work
 on one of them; it prints no result line); ``--only vcddpm`` answers the
 full-width DDPM request (1,000 steps), which the default run leaves out.
@@ -162,6 +174,17 @@ SELF_MHA_CASES = [(48, 256, 10, 64), (48, 64, 20, 64), (48, 16, 20, 64), (2048, 
                   (2048, 125, 5, 64), (2048, 125, 8, 64), (512, 125, 10, 64), (128, 125, 20, 64),
                   (32, 125, 20, 64), (2048, 250, 5, 64), (128, 250, 20, 64),
                   (32, 256, 8, 80), (32, 64, 8, 160), (32, 16, 8, 160), *SELF_MHA_RAGGED]
+# the same sites on one rank of the sharded paths (two ranks): tp = 2 halves
+# every head count that divides (ModelScope's 5-head level stays whole),
+# sp = 2 halves the frames of the spatial sites (the temporal ones see every
+# frame). ModelScope tp: spatial at 16x16, 8x8, 4x4, temporal at the four
+# levels; ModelScope sp: spatial; VideoCrafter tp and sp: spatial
+SELF_MHA_SHARDED = [(48, 256, 5, 64), (48, 64, 10, 64), (48, 16, 10, 64), (2048, 24, 4, 64),
+                    (512, 24, 5, 64), (128, 24, 10, 64), (32, 24, 10, 64),
+                    (24, 256, 10, 64), (24, 64, 20, 64), (24, 16, 20, 64),
+                    (32, 256, 4, 80), (32, 64, 4, 160), (32, 16, 4, 160),
+                    (16, 256, 8, 80), (16, 64, 8, 160), (16, 16, 8, 160)]
+SELF_MHA_CASES += SELF_MHA_SHARDED
 # Packed cross-attention (B, N, S, heads, D), all on the packed kernel's
 # body: VideoCrafter's spatial cross-attention, 16 frames of tokens merged
 # into the query rows over the 77-token context, at its four levels; a
@@ -169,6 +192,11 @@ SELF_MHA_CASES = [(48, 256, 10, 64), (48, 64, 20, 64), (48, 16, 20, 64), (2048, 
 CROSS_MHA_RAGGED = [(3, 1000, 50, 5, 40), (2, 300, 200, 2, 64)]
 CROSS_MHA_CASES = [(2, 16384, 77, 8, 40), (2, 4096, 77, 8, 80), (2, 1024, 77, 8, 160),
                    (2, 256, 77, 8, 160), *CROSS_MHA_RAGGED]
+# one rank of VideoCrafter's sharded paths: tp = 2 (4 heads), sp = 2 (8 frames)
+CROSS_MHA_SHARDED = [(2, 16384, 77, 4, 40), (2, 4096, 77, 4, 80), (2, 1024, 77, 4, 160),
+                     (2, 256, 77, 4, 160), (2, 8192, 77, 8, 40), (2, 2048, 77, 8, 80),
+                     (2, 512, 77, 8, 160), (2, 128, 77, 8, 160)]
+CROSS_MHA_CASES += CROSS_MHA_SHARDED
 # Frame-axis attention (B samples, F frames, N tokens, heads, D): every
 # ModelScope level at 24, 125 and 250 frames (CFG batch 2, 64-wide heads),
 # the 1024x576 top level (72x128 latent), and ragged ones at the other
@@ -195,7 +223,11 @@ FLASH_RAGGED = [(3, 333, 777, 64, 0.125), (3, 333, 777, 40, 40 ** -0.5), (2, 70,
                 (2, 200, 50, 64, 0.125), (2, 130, 100, 40, 40 ** -0.5), (2, 1, 513, 64, 0.125),
                 (2, 300, 517, 80, 80 ** -0.5), (3, 129, 65, 160, 160 ** -0.5),
                 (2, 100, 300, 512, 512 ** -0.5), (1, 65, 1030, 512, 512 ** -0.5)]
-FLASH_CASES = FLASH_TIMED + FLASH_RAGGED
+# one rank of the sharded paths: ModelScope sp = 2 (12 frames of 5 heads; its
+# 5-head level stays whole under tp), VideoCrafter tp = 2 (4 heads) or sp = 2
+# (8 frames): both (128, 1024, 1024, 40)
+FLASH_SHARDED = [(120, 1024, 1024, 64, 0.125), (128, 1024, 1024, 40, 40 ** -0.5)]
+FLASH_CASES = FLASH_TIMED + FLASH_RAGGED + FLASH_SHARDED
 
 # samples per training step of the full-width runs: the batch that the
 # flash backward's path shapes are sized by
@@ -230,7 +262,11 @@ RELPOS_PATH = [(2, 16, 1024, 8, 40), (2, 16, 256, 8, 80), (2, 16, 64, 8, 160),
                (2, 16, 16, 8, 160)]
 RELPOS_RAGGED = [(2, 5, 37, 3, 24), (2, 24, 8, 2, 40), (1, 40, 6, 2, 160), (2, 16, 1023, 8, 40),
                  (1, 64, 5, 2, 160), (2, 5, 4096, 3, 24), (2, 24, 4096, 1, 16)]
-RELPOS_CASES = RELPOS_PATH + RELPOS_RAGGED
+# one rank of VideoCrafter's tp = 2 path (4 heads; sp gathers all 16 frames
+# first, so its shapes are the path's)
+RELPOS_SHARDED = [(2, 16, 1024, 4, 40), (2, 16, 256, 4, 80), (2, 16, 64, 4, 160),
+                  (2, 16, 16, 4, 160)]
+RELPOS_CASES = RELPOS_PATH + RELPOS_RAGGED + RELPOS_SHARDED
 
 # the time of each redesigned kernel at its dominant shape before its
 # redesign (PERF.md section 6, measured on an "NVIDIA H100 80GB HBM3,
@@ -772,11 +808,12 @@ def check_fused_mha(g) -> list[KernelRecord]:
         ms = _time_ms(call, 20)
         plain_ms = _time_ms(lambda: fused_cross_mha_plain(q, k, v, h), 3)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(fold(q), fold(k), fold(v)), 20)
-        dev = _kernel_device_ms(call, "packed_mha_kernel") if n == 16384 else None
+        main = (n, h) == (16384, 8)
+        dev = _kernel_device_ms(call, "packed_mha_kernel") if main else None
         cross.timed((b, n, s, hd, h), ms, plain_ms, lib_ms, *_attn_flops_bytes(b, n, s, d, h),
-                    main=n == 16384, plan=_mha_plan_note(self_mha_plan(b, n, s, h, d)),
+                    main=main, plan=_mha_plan_note(self_mha_plan(b, n, s, h, d)),
                     device_ms=dev)
-        if n == 16384:
+        if main:
             print(f"  device fused_cross_mha {str((b, n, s, hd, h)):26s} "
                   + (f"{dev:.4f} ms (torch.profiler)" if dev
                      else "not measured (the profiler recorded no device time)")
@@ -822,7 +859,7 @@ def check_relpos(g) -> list[KernelRecord]:
         ms = _time_ms(call, 20)
         plain_ms = _time_ms(lambda: relpos_mha_plain(q, k, v, k2, v2, h, t), 3)
         items = b * n * h
-        main = n == 1024
+        main = (n, h) == (1024, 8)
         dev = _kernel_device_ms(call, "relpos_mha_kernel")
         rec.timed(shape, ms, plain_ms, None, 8.0 * items * t * t * d,
                   2.0 * (4 * b * t * n * hd + 2 * t * t * d), main=main, plan=plan,
@@ -3429,14 +3466,456 @@ def _print_breakdown(kernels, busy: float, top: int = 10) -> None:
         print(f"  top {dev_ms:8.2f} ms x{count:<4d} {name[:110]}")
 
 
+# ---------------------------------------------------------------------------
+# Sharded sampling (``--only parallel``): the one-process batched path, two
+# ranks sharing the card over gloo (dp, tp and sp), and the CLI under torchrun
+
+PAR_RANKS = 2
+PAR_STEPS = 4              # steps of the tp and sp requests
+PAR_CALLS = (0, 2, 3)      # their UNet calls held against the one-rank call
+PAR_TIMEOUT = 600          # seconds the two ranks, and then the CLI call, may take
+PAR_FAMILIES = ("modelscope", "videocrafter")
+
+
+def _par_pipeline(family: str):
+    """The full-width bf16 pipeline of ``family`` from seed 0, its zero
+    leaves perturbed; ModelScope's with the published 49,408-row text
+    embedding and the repo's vocab, so that a directory saved from it loads
+    the same pipeline."""
+    from t2v_torch.core.config import CLIPTextConfig, ModelScopeUNetConfig
+    from t2v_torch.core.dtypes import Policy
+    from t2v_torch.pipeline.pipeline import ModelScopePipeline
+    from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
+    from t2v_torch.text.tokenizer import CLIPTokenizer
+
+    if family == "modelscope":
+        pipe = ModelScopePipeline.random_init(ModelScopeUNetConfig(), Policy.bf16(), seed=0,
+                                              device="cuda", clip_cfg=CLIPTextConfig.vit_h_14())
+        pipe.text_encoder.tokenizer = CLIPTokenizer.from_vocab_file(str(VOCAB))
+    else:
+        pipe = VideoCrafterPipeline.random_init(policy=Policy.bf16(), seed=0, device="cuda")
+    _perturb_zero_leaves(pipe)
+    return pipe
+
+
+def _par_request(family: str, steps: int, batch_count: int = 1):
+    from t2v_torch.core.config import T2VArgs
+
+    return T2VArgs(prompt="a photo of a cat in the forest", n_prompt="blurry", seed=1234,
+                   steps=steps, frames=T if family == "modelscope" else VC_T, width=PX,
+                   height=PX, cfg_scale=CFG, batch_count=batch_count)
+
+
+def _par_per_call(pipe, family: str) -> dict:
+    """One UNet call's launches. The sharded paths launch as many: a split
+    attention runs its kernels on the local heads, one launch a site;
+    frames split over sp are gathered before the temporal conv chain and
+    the temporal attention, and the spatial sites run on the local frames."""
+    from t2v_torch.models.modelscope_unet import count_kernel_sites
+    from t2v_torch.models.videocrafter_unet import count_vc_kernel_sites
+
+    if family == "modelscope":
+        return count_kernel_sites(pipe.unet_cfg, T, LAT, LAT)
+    return count_vc_kernel_sites(pipe.cfg, VC_T, LAT, LAT)
+
+
+def _par_run(label, pipe, args, outdir: Path, per_call: dict, calls: int, decodes: int,
+             **shards):
+    """``run`` writing PNG frames under ``outdir``, the plain versions
+    barred from CUDA tensors; fails unless the launches equal ``calls``
+    UNet calls plus ``decodes`` decode calls. Returns (launches, seconds)."""
+    import torch
+
+    from t2v_torch.core.config import T2VOutputArgs
+    from t2v_torch.pipeline.run import run
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    with _no_plain_on_cuda():
+        run(args, T2VOutputArgs(skip_video_creation=True), pipe=pipe, outdir=str(outdir),
+            callback_interval=None, keep_in_vram=False, **shards)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _read_counters()
+    expected = _expected(per_call, calls, decodes)
+    if counts != expected:
+        _fail(f"{label}: launch counts {counts} differ from the topology's {expected}")
+    return counts, seconds
+
+
+def _png_frames(outdir: Path) -> list:
+    """The (F, H, W, 3) PNG frames of each batch ``run`` wrote, in batch order."""
+    import cv2
+    import numpy as np
+
+    batches = sorted((d for d in outdir.iterdir() if d.is_dir()),
+                     key=lambda d: (len(d.name), d.name))
+    return [np.stack([cv2.imread(str(f)) for f in sorted(d.glob("*.png"))]) for d in batches]
+
+
+def _frame_distance(got, want) -> tuple[int, float]:
+    """(largest, mean) level difference of two uint8 frame stacks."""
+    import numpy as np
+
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    return int(d.max()), float(d.mean())
+
+
+def _rel_rms(got, want) -> float:
+    """Relative RMS distance of two frame stacks."""
+    import numpy as np
+
+    got, want = (np.asarray(a, np.float64) for a in (got, want))
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _par_fault_rms(pipe, args, outdir: Path, serial_frames) -> float:
+    """The batched request ``args`` (``dp_shards=2`` in one process) with a
+    fault planted in the batch: sample 1's cond and uncond context rows
+    swapped at every UNet call (a wrong CFG pairing). Returns the relative
+    RMS of sample 1's frames from the serial ones, which the frame gate
+    must exceed for it to catch such a fault."""
+    from t2v_torch.core.config import T2VOutputArgs
+    from t2v_torch.pipeline.run import run
+
+    n = args.batch_count
+
+    def swap(mod, a, kw):
+        ctx = a[2].clone()
+        ctx[[1, n + 1]] = a[2][[n + 1, 1]]
+        return (a[0], a[1], ctx, *a[3:]), kw
+
+    handle = pipe.unet.register_forward_pre_hook(swap, with_kwargs=True)
+    try:
+        run(args, T2VOutputArgs(skip_video_creation=True), pipe=pipe, outdir=str(outdir),
+            callback_interval=None, keep_in_vram=False, dp_shards=2)
+    finally:
+        handle.remove()
+    return _rel_rms(_png_frames(outdir)[1], serial_frames[1])
+
+
+def _par_captured(pipe, fn, calls) -> tuple:
+    """``fn()`` and, at the UNet calls numbered ``calls``, that call's
+    inputs and output."""
+    kept, seen = [], [0]
+
+    def hook(mod, a, kw, out):
+        if seen[0] in calls:
+            kept.append((a, kw, out))
+        seen[0] += 1
+
+    handle = pipe.unet.register_forward_hook(hook, with_kwargs=True)
+    try:
+        res = fn()
+    finally:
+        handle.remove()
+    return res, kept
+
+
+def _par_call_check(label, got, want) -> list:
+    """Fails unless ``got`` is within TOL_SHARE of max |want| of it;
+    returns [max abs error, limit]."""
+    err = (got.float() - want.float()).abs().max().item()
+    limit = TOL_SHARE * max(1.0, want.float().abs().max().item())
+    print(f"{label}: max_abs_err={err:.3e} tol={limit:.3e} {'ok' if err <= limit else 'MISMATCH'}",
+          flush=True)
+    if not err <= limit:
+        _fail(f"{label}: {err} above {limit}")
+    return [err, limit]
+
+
+def _gloo_cuda_probe(rank: int) -> None:
+    """Print which collectives this torch build's gloo takes on CUDA
+    tensors: ``parallel/mesh.py`` hands every group the tensors where they
+    lie, so the sharded paths on one card need all three."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(4, device="cuda")
+    probes = {"all_reduce": lambda: dist.all_reduce(x.clone()),
+              "broadcast": lambda: dist.broadcast(x.clone(), 0),
+              "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in
+                                                      range(PAR_RANKS)], x)}
+    for name, call in probes.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            answer = "takes CUDA tensors"
+        except (RuntimeError, ValueError) as e:
+            answer = f"refuses CUDA tensors ({str(e).splitlines()[0][:100]})"
+        print(f"rank {rank}: gloo {name} {answer}", flush=True)
+
+
+def _parallel_rank(rank: int, port: int, out: Path) -> int:
+    """One of the two ranks (``--parallel-rank``): both drive cuda:0, so the
+    group is gloo. Per family: a dp = 2 request (20 steps, one sample a
+    rank at the serial loop's shapes); then, for tp = 2 and sp = 2, the
+    one-rank UNet calls of a serial 4-step request held against the sharded
+    calls on the same inputs, and the 4-step request through ``run``. Every
+    ``run`` counts its launches against the topology's with the plain
+    versions barred. Writes ``rank{rank}.json``."""
+    import torch
+
+    from t2v_torch.parallel import multihost
+    from t2v_torch.parallel.mesh import get_mesh
+    from t2v_torch.parallel.sharding import parallel_unet
+
+    multihost.initialize(f"127.0.0.1:{port}", PAR_RANKS, rank)
+    torch.cuda.set_device(multihost.rank_device())
+    _gloo_cuda_probe(rank)
+    report = {}
+    try:
+        for family in PAR_FAMILIES:
+            torch.cuda.reset_peak_memory_stats()
+            pipe = _par_pipeline(family)
+            per_call = _par_per_call(pipe, family)
+            steps = STEPS if family == "modelscope" else VC_STEPS
+            rep = report[family] = {}
+            counts, sec = _par_run(f"{family} dp=2 rank {rank}", pipe,
+                                   _par_request(family, steps, 2), out / f"{family}_dp", per_call,
+                                   steps, 2 if rank == 0 else 0, dp_shards=2)
+            rep["dp"] = {"launches": counts, "seconds": sec}
+            args4 = _par_request(family, PAR_STEPS)
+            res4, calls = _par_captured(pipe, lambda: pipe.infer(args4), PAR_CALLS)
+            frames4 = res4.frames
+            for kind in ("tp", "sp"):
+                mesh = get_mesh(**{kind: 2})
+                errs = []
+                for i, (a, kw, want) in zip(PAR_CALLS, calls):
+                    x = mesh.sp.shard(a[0], 1) if kind == "sp" else a[0]
+                    with torch.no_grad(), _no_plain_on_cuda(), parallel_unet(
+                            pipe.unet, tp=mesh.tp if kind == "tp" else None,
+                            sp=mesh.sp if kind == "sp" else None):
+                        got = pipe.unet(x, *a[1:], **kw)
+                    if kind == "sp":
+                        got = mesh.sp.all_gather(got, 1)
+                    errs.append(_par_call_check(f"rank {rank} {family} {kind}=2 UNet call {i}",
+                                                got, want))
+                counts, sec = _par_run(f"{family} {kind}=2 rank {rank}", pipe, args4,
+                                       out / f"{family}_{kind}", per_call, PAR_STEPS,
+                                       1 if rank == 0 else 0, **{f"{kind}_shards": 2})
+                rep[kind] = {"calls": errs, "launches": counts, "seconds": sec}
+                if rank == 0:
+                    rep[kind]["frames_vs_serial"] = _frame_distance(  # PNGs are BGR
+                        _png_frames(out / f"{family}_{kind}")[0], frames4[..., ::-1])
+            rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            del pipe, calls
+            _release()
+    finally:
+        multihost.shutdown()
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    return 0
+
+
+def _par_env() -> dict:
+    """The environment of the processes this group starts: gloo on the
+    loopback interface."""
+    import os
+
+    env = dict(os.environ)
+    if Path("/sys/class/net/lo").exists():
+        env["GLOO_SOCKET_IFNAME"] = "lo"
+    return env
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_procs(label: str, cmds: list, logs: list) -> None:
+    """Start ``cmds`` together, each writing to its log, and wait for all
+    of them; fails (after stopping the others) if one does not end with 0
+    within PAR_TIMEOUT, printing the end of its log."""
+    procs = []
+    try:
+        for cmd, log in zip(cmds, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                              env=_par_env(), cwd=REPO))
+        deadline = time.monotonic() + PAR_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        _fail(f"{label}: not done within {PAR_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            text = Path(log).read_text()
+            keep = [ln for ln in text.splitlines()
+                    if any(w in ln for w in ("UNet call", "backend", "gloo", "Error"))]
+            print(f"{label}: {Path(log).name}: " + ("\n  ".join([""] + keep) if keep else
+                                                   "(no check lines)"), flush=True)
+    codes = [p.returncode for p in procs]
+    if codes != [0] * len(procs):
+        tails = "\n".join(Path(log).read_text()[-3000:] for log in logs)
+        _fail(f"{label}: exit codes {codes}\n{tails}")
+
+
+def drive_parallel() -> dict:
+    """Sharded sampling at full width (ModelScope 24f, VideoCrafter 16f).
+    In this process, per family: two serial batches through ``run`` and the
+    same request with ``dp_shards=2`` without a process group (one batched
+    loop at CFG batch 4): its first, middle and last UNet calls held, per
+    sample, against the serial call on the same rows within TOL_SHARE of
+    max |out|, and its frames within TOL_SHARE relative RMS of the serial
+    ones (the end of a 20-step chain carries each rounding difference of
+    the batch-4 call on, so its largest level difference is printed, not
+    gated); the same request with a fault planted in the batch
+    (``_par_fault_rms``) must land beyond that frame limit.
+    Then two ranks sharing the card (``--parallel-rank``): their dp = 2
+    frames equal the serial ones; their tp = 2 and sp = 2 UNet calls agree
+    with the one-rank calls (``_parallel_rank``). Then the CLI under
+    torchrun (``python -m torch.distributed.run --standalone
+    --nproc-per-node 2 -m t2v_torch.cli.generate --dp-shards 2``) on a
+    directory saved from this process's ModelScope pipeline: rank 0 writes
+    both batches once, equal to the serial ones. Returns the launches per
+    path."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from t2v_torch.io.train_state import save_weights
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_par_", dir=REPO))
+    launches, serial = {}, {}
+    t_group = time.perf_counter()
+    try:
+        for family in PAR_FAMILIES:
+            t0 = time.perf_counter()
+            pipe = _par_pipeline(family)
+            t_init = time.perf_counter() - t0
+            per_call = _par_per_call(pipe, family)
+            steps = STEPS if family == "modelscope" else VC_STEPS
+            args = _par_request(family, steps, 2)
+            _, sec_serial = _par_run(f"{family} serial", pipe, args, root / f"{family}_serial",
+                                     per_call, 2 * steps, 2)
+            torch.cuda.reset_peak_memory_stats()
+            batch_calls = (0, steps // 2, steps - 1)
+            (counts, sec), calls = _par_captured(pipe, lambda: _par_run(
+                f"{family} batched dp=2", pipe, args, root / f"{family}_batched", per_call, steps,
+                2, dp_shards=2), batch_calls)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            launches[f"{family}_batched"] = counts
+            # each sample's rows of a batched call (uncond i, cond i) against
+            # the serial loop's call on the same rows
+            for step, (a, kw, out) in zip(batch_calls, calls):
+                for i in range(args.batch_count):
+                    rows = [i, args.batch_count + i]
+                    with torch.no_grad(), _no_plain_on_cuda():
+                        want = pipe.unet(*(t[rows] for t in a), **kw)
+                    _par_call_check(f"{family} batched dp=2 UNet call {step}, sample {i}, "
+                                    "against its serial call", out[rows], want)
+            del calls
+            serial[family] = _png_frames(root / f"{family}_serial")
+            sound = []
+            for i, (got, want) in enumerate(zip(_png_frames(root / f"{family}_batched"),
+                                                serial[family])):
+                big, mean = _frame_distance(got, want)
+                rel = _rel_rms(got, want)
+                sound.append(rel)
+                print(f"{family} batched dp=2 (one process, CFG batch 4): batch {i} frames "
+                      f"{got.shape} vs serial: relative RMS {rel:.3e} (limit {TOL_SHARE}), "
+                      f"largest level difference {big}, mean {mean:.4f}", flush=True)
+                if got.shape != want.shape or rel > TOL_SHARE:
+                    _fail(f"{family} batched dp=2 batch {i}: {rel} from the serial frames")
+            fault = _par_fault_rms(pipe, args, root / f"{family}_fault", serial[family])
+            print(f"{family} batched dp=2 with a planted fault (sample 1's cond and uncond rows "
+                  f"swapped): batch 1 frames vs serial: relative RMS {fault:.3e}, "
+                  f"{fault / max(sound):.1f}x the sound run's largest; the gate "
+                  f"(limit {TOL_SHARE}) {'catches it' if fault > TOL_SHARE else 'MISSES it'}",
+                  flush=True)
+            if not fault > TOL_SHARE:
+                _fail(f"{family}: the batched frame gate passes a planted fault ({fault})")
+            print(f"{family} batched dp=2: {sec / 2:.3f} s/video over {args.batch_count} videos "
+                  f"(serial {sec_serial / 2:.3f}), peak {peak:.2f} GiB, random_init {t_init:.1f} "
+                  f"s, launches {counts}", flush=True)
+            if family == "modelscope":
+                save_weights(str(root / "modelscope_dir"),
+                             unet_params=dict(pipe.unet.named_parameters()), vae=pipe.vae,
+                             clip=pipe.text_encoder.model, unet_cfg=pipe.unet_cfg,
+                             vae_cfg=pipe.vae_cfg, clip_cfg=pipe.clip_cfg,
+                             model_family="modelscope", tokenizer_vocab=str(VOCAB))
+            del pipe
+            _release()
+
+        t0 = time.perf_counter()
+        port = _free_port()
+        _run_procs("two ranks", [[sys.executable, str(Path(__file__).resolve()), "--parallel-rank",
+                                  str(r), "--port", str(port), "--out", str(root)]
+                                 for r in range(PAR_RANKS)],
+                   [root / f"rank{r}.log" for r in range(PAR_RANKS)])
+        t_ranks = time.perf_counter() - t0
+        reports = [json.loads((root / f"rank{r}.json").read_text()) for r in range(PAR_RANKS)]
+        for family in PAR_FAMILIES:
+            for i, (got, want) in enumerate(zip(_png_frames(root / f"{family}_dp"),
+                                                serial[family])):
+                big, mean = _frame_distance(got, want)
+                print(f"{family} dp=2 over two ranks: rank 0's batch {i} frames vs serial: "
+                      f"largest level difference {big}, mean {mean:.4f} (must be 0)", flush=True)
+                if big:
+                    _fail(f"{family} dp=2 batch {i}: frames differ from the serial loop's")
+            for kind in ("dp", "tp", "sp"):
+                for r, rep in enumerate(reports):
+                    k = rep[family][kind]
+                    launches[f"{family}_{kind}2_rank{r}"] = k["launches"]
+                    extra = (f", frames vs serial (largest, mean level difference) "
+                             f"{k['frames_vs_serial']}" if "frames_vs_serial" in k else "")
+                    print(f"{family} {kind}=2 rank {r}: {k['seconds']:.3f} s for the request"
+                          f"{extra}, launches {k['launches']}", flush=True)
+            print(f"{family}: peak per rank {[rep[family]['peak_gib'] for rep in reports]} GiB",
+                  flush=True)
+        print(f"two ranks: {t_ranks:.1f} s", flush=True)
+
+        t0 = time.perf_counter()
+        args = _par_request("modelscope", STEPS, 2)
+        cli_out = root / "cli_out"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(PAR_RANKS), "-m", "t2v_torch.cli.generate",
+               "--model-dir", str(root / "modelscope_dir"), "--prompt", args.prompt,
+               "--n-prompt", args.n_prompt, "--seed", str(args.seed), "--steps", str(args.steps),
+               "--frames", str(args.frames), "--width", str(PX), "--height", str(PX),
+               "--cfg-scale", str(args.cfg_scale), "--batch-count", "2", "--dp-shards", "2",
+               "--skip-video-creation", "--outdir", str(cli_out)]
+        _run_procs("torchrun CLI", [cmd], [root / "cli.log"])
+        written = sorted(cli_out.rglob("*.png"))
+        frames = _png_frames(cli_out)
+        print(f"torchrun CLI --dp-shards 2: {time.perf_counter() - t0:.1f} s, "
+              f"{len(written)} PNGs in {len(frames)} batch directories", flush=True)
+        if len(written) != 2 * T or len(frames) != 2:
+            _fail(f"torchrun CLI: {len(written)} PNGs in {len(frames)} directories, expected "
+                  f"{T} in each of 2 (written once, by rank 0)")
+        for i, (got, want) in enumerate(zip(frames, serial["modelscope"])):
+            big, mean = _frame_distance(got, want)
+            print(f"torchrun CLI batch {i} vs serial: largest level difference {big}", flush=True)
+            if big:
+                _fail(f"torchrun CLI batch {i}: frames differ from the serial loop's")
+        print(f"parallel group: {time.perf_counter() - t_group:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     phases = ("kernels", "small", "modelscope", "generate", "modes", "videocrafter",
-              "vcgenerate", "vcbranches", "train")
+              "vcgenerate", "vcbranches", "parallel", "train")
     parser.add_argument("--only", help="run the build and these groups of phases (comma-"
                         f"separated, of {', '.join(phases)}, or vcddpm, which the default run "
                         "leaves out); prints no result line")
-    only = parser.parse_args().only
+    # one rank of the parallel group, started by drive_parallel
+    parser.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--out", help=argparse.SUPPRESS)
+    ns = parser.parse_args()
+    only = ns.only
     if only is not None:
         only = set(only.split(","))
         if not only <= {*phases, "vcddpm"}:
@@ -3454,6 +3933,8 @@ def main() -> int:
         print(f"chip_smoke: no t2v_torch package beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if ns.parallel_rank is not None:
+        return _parallel_rank(ns.parallel_rank, ns.port, Path(ns.out))
     t_start = time.perf_counter()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
@@ -3503,6 +3984,9 @@ def main() -> int:
     if run("vcbranches"):
         launches.update(drive_vcbranches())
         print(f"vcbranches done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    if run("parallel"):
+        launches.update(drive_parallel())
+        print(f"parallel done at {time.perf_counter() - t_start:.0f} s", flush=True)
     if only is not None and "vcddpm" in only:
         launches.update(drive_vcddpm())
         print(f"vcddpm done at {time.perf_counter() - t_start:.0f} s", flush=True)

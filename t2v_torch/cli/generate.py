@@ -20,8 +20,18 @@ FPS-conditioned model requires it), ``--inpainting-image`` with
 (``--adapter-ckpt`` with ``--adapter-video``, RGB with ``--depth-ckpt`` or
 precomputed depth maps without). On the card the weights are bf16 unless
 ``--fp32``; on the CPU (``--device cpu``) they are float32 and every kernel
-runs its plain PyTorch version. Not ported yet, and refused by name:
-sharded sampling (``--dp/--tp/--sp-shards`` above 1).
+runs its plain PyTorch version.
+
+Sharded sampling: ``--dp-shards`` splits the ``--batch-count`` samples,
+``--sp-shards`` the frames and ``--tp-shards`` the UNet's heads over the
+ranks of a torchrun launch, which rank 0 writes:
+  torchrun --standalone --nproc-per-node 2 -m t2v_torch.cli.generate \
+      --tiny --batch-count 2 --dp-shards 2 --outdir out
+Each rank drives ``cuda:{LOCAL_RANK % device_count}`` (gloo when ranks share a
+card, NCCL otherwise). In one process the same flags run the samples as one
+batch on the one device. A launch of several ranks whose request would not
+use them (no shard flag above 1, ``--vc-sample-type ddpm``, fewer ranks than
+dp·sp·tp) is refused before any rank loads a model.
 """
 
 from __future__ import annotations
@@ -120,9 +130,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="float32 weights on the card (default bf16; the CPU always runs float32)")
     p.add_argument("--tiny", action="store_true",
                    help="tiny random-weight model (smoke test, no checkpoints)")
-    p.add_argument("--dp-shards", type=int, default=1, help="data-parallel sampling (not ported yet)")
-    p.add_argument("--tp-shards", type=int, default=1, help="tensor-parallel UNet (not ported yet)")
-    p.add_argument("--sp-shards", type=int, default=1, help="frame-axis sharding (not ported yet)")
+    p.add_argument("--dp-shards", type=int, default=1,
+                   help="data-parallel sampling: the batch's samples split over the ranks")
+    p.add_argument("--tp-shards", type=int, default=1,
+                   help="tensor-parallel UNet: attention heads and GEGLU width split over ranks")
+    p.add_argument("--sp-shards", type=int, default=1,
+                   help="frame-axis sharding: each rank holds frames / sp of every sample")
     p.add_argument("--profile", help="write a torch.profiler trace (trace.json) to this dir")
     # server mode
     p.add_argument("--serve", action="store_true", help="run the WebAPI instead")
@@ -154,10 +167,6 @@ def _refusals(ns) -> list[str]:
     if ns.adapter_ckpt and ns.model_type != "VideoCrafter":
         out.append("--adapter-ckpt: the depth adapter conditions VideoCrafter "
                    "(--model-type VideoCrafter)")
-    for flag in ("dp_shards", "tp_shards", "sp_shards"):
-        if getattr(ns, flag) > 1:
-            out.append(f"--{flag.replace('_', '-')} {getattr(ns, flag)}: sharded sampling is "
-                       "not ported yet (the multi-GPU slice)")
     return out
 
 
@@ -167,9 +176,34 @@ def main(argv=None) -> int:
     if refused:
         raise SystemExit("t2v_torch.generate: " + "; ".join(refused))
 
-    from t2v_torch.pipeline.pipeline import ModelScopePipeline, resolve_device
+    from t2v_torch.parallel import multihost
+    from t2v_torch.pipeline.pipeline import resolve_device
+    from t2v_torch.pipeline.run import group_refusal
 
-    device = resolve_device(ns.device)
+    # under torchrun every rank joins the process group and drives its card
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    launched = world > 1 and not ns.serve
+    refusal = launched and group_refusal(world, (ns.dp_shards, ns.sp_shards, ns.tp_shards),
+                                         ns.model_type == "VideoCrafter"
+                                         or ns.model == "<videocrafter>", ns.vc_sample_type)
+    if refusal:
+        raise SystemExit(f"t2v_torch.generate: {refusal}")
+    if launched:
+        multihost.initialize(device=ns.device)
+        device = multihost.rank_device(ns.device)
+    else:
+        device = resolve_device(ns.device)
+    try:
+        return _generate(ns, device)
+    finally:
+        if launched:
+            multihost.shutdown()
+
+
+def _generate(ns, device) -> int:
+    from t2v_torch.parallel import multihost
+    from t2v_torch.pipeline.pipeline import ModelScopePipeline
+
     if ns.serve:
         try:
             import uvicorn
@@ -278,8 +312,11 @@ def main(argv=None) -> int:
             adapter_ckpt=ns.adapter_ckpt, adapter_video=ns.adapter_video,
             depth_ckpt=ns.depth_ckpt,
             vc_sample_type=ns.vc_sample_type, vc_uc_type=ns.uc_type, device=str(device),
+            dp_shards=ns.dp_shards, tp_shards=ns.tp_shards, sp_shards=ns.sp_shards,
         )
 
+    if not multihost.is_primary():
+        return 0
     if ns.json:
         print(json.dumps({"videos": result.videos, "infotexts": result.infotexts}))
     else:

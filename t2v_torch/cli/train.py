@@ -72,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ns = build_parser().parse_args(argv)
     if ns.sp != 1 or ns.tp != 1:
-        raise SystemExit("--sp/--tp: meshes are not ported yet (the multi-GPU slice); "
-                         "the port trains on one device")
+        raise SystemExit("--sp/--tp: training on a mesh is not ported yet (the mesh-training "
+                         "slice; sharded sampling is ported); the port trains on one device")
     if ns.vc_ckpt and (ns.model_type != "VideoCrafter" or ns.model_dir):
         raise SystemExit("--vc-ckpt: a VideoCrafter checkpoint, taken with --model-type "
                          "VideoCrafter and without --model-dir")

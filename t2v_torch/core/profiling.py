@@ -1,6 +1,8 @@
 """Tracing and run provenance of the port.
 
 The port's counterpart of the JAX package's ``core/profiling.py``:
+  * ``PhaseTimes``  — host seconds per named phase (text encode, sample,
+    decode, stitch), summed over every entry of the phase;
   * ``trace(dir)``  — a ``torch.profiler`` trace (host and, on the card,
     device activity) written to ``dir`` as a Chrome trace;
   * ``RunManifest`` — the machine-readable record written next to each
@@ -15,8 +17,29 @@ import contextlib
 import dataclasses
 import json
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Any
+
+
+@dataclass
+class PhaseTimes:
+    """Host seconds per named phase, summed over the phase's entries. A
+    phase that runs work on the card should end in a synchronize, or the
+    time is the enqueue's."""
+
+    times: dict[str, float] = field(default_factory=dict)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
+
+    def summary(self) -> str:
+        return " ".join(f"{k}={v:.2f}s" for k, v in self.times.items())
 
 
 @contextlib.contextmanager

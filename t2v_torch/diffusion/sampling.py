@@ -339,18 +339,22 @@ def sample_loop(
     step_noise: Sequence[torch.Tensor] | None = None,
     inpaint_noise: Sequence[torch.Tensor] | None = None,
     device: torch.device | str | None = None,
+    draws: LoopNoise | None = None,
 ) -> torch.Tensor:
     """Denoise for ``steps`` steps with any registered sampler; returns the
     final float32 latent of ``shape`` (B, F, H, W, C).
 
     apply_fn(x, t, context) -> model output, x: (B, F, H, W, C), t: (B,).
+    ``draws`` replaces the source of the in-loop draws (by default
+    ``generator`` and the ``step_noise`` / ``inpaint_noise`` tables), as the
+    sharded sampler's per-sample streams do (``parallel/dp_sample.py``).
     """
     if inpaint_mode not in INPAINT_MODES:
         raise ValueError(f"inpaint_mode {inpaint_mode!r} (one of {INPAINT_MODES})")
     mod = get_sampler(sampler_name)
     if device is None:
         device = cond.device
-    draws = LoopNoise(generator, step_noise, inpaint_noise)
+    draws = draws or LoopNoise(generator, step_noise, inpaint_noise)
     if noise is None:
         noise = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
     noise = noise.to(device=device, dtype=torch.float32)

@@ -53,14 +53,22 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
     return x
 
 
-def group_norm(x, weight, bias, groups: int, eps: float, silu: bool = False):
+def group_norm(x, weight, bias, groups: int, eps: float, silu: bool = False, sp=None):
     """GroupNorm over a channels-last tensor ``(B, ..., C)``: statistics per
     sample over every middle axis and the group's channels, in float32,
-    variance as E[x^2] - E[x]^2. Returns x's dtype."""
+    variance as E[x^2] - E[x]^2. Returns x's dtype. With ``sp`` (a mesh
+    axis over which the frames of x are split) the float32 sums and sums
+    of squares are all-reduced over it first, so the statistics span every
+    rank's frames."""
     b, c = x.shape[0], x.shape[-1]
     x32 = x.float().reshape(b, -1, groups, c // groups)
-    mean = x32.mean(dim=(1, 3), keepdim=True)
-    var = (x32 * x32).mean(dim=(1, 3), keepdim=True) - mean * mean
+    if sp is None:
+        mean = x32.mean(dim=(1, 3), keepdim=True)
+        var = (x32 * x32).mean(dim=(1, 3), keepdim=True) - mean * mean
+    else:
+        sums = sp.all_reduce_sum(torch.stack([x32.sum(dim=(1, 3)), (x32 * x32).sum(dim=(1, 3))]))
+        sums = sums[:, :, None, :, None] / (x32.shape[1] * x32.shape[3] * sp.size)
+        mean, var = sums[0], sums[1] - sums[0] * sums[0]
     y = (x32 - mean) * torch.rsqrt(var.clamp_min(0.0) + eps)
     y = y.reshape(x.shape) * weight.float() + bias.float()
     if silu:
@@ -78,6 +86,17 @@ class GroupNorm32(nn.GroupNorm):
 
     def forward(self, x):
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, self.silu)
+
+
+class FrameGroupNorm32(GroupNorm32):
+    """GroupNorm32 on (B, F, ..., C) input whose statistics span the frames
+    (VideoCrafter's norms). Under ``sp`` each rank holds its frames and the
+    statistics are all-reduced over the axis."""
+
+    sp = None  # the mesh axis splitting the frames (parallel/sharding.py)
+
+    def forward(self, x):
+        return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, self.silu, self.sp)
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -101,6 +120,27 @@ class Conv2d(nn.Conv2d):
 def conv1x1_as_linear(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     """A Conv1d of kernel 1 applied per token: a Linear over the last axis."""
     return F.linear(x, conv.weight[:, :, 0], conv.bias)
+
+
+def row_parallel(linear: nn.Linear, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """``linear(x)``; with ``tp`` (a mesh axis over which ``linear``'s input
+    features are split) the rank's partial product is summed over it in
+    float32 and the bias added once, after the sum."""
+    if tp is None:
+        return linear(x)
+    y = tp.all_reduce_sum(F.linear(x, linear.weight))
+    if linear.bias is not None:
+        y = y + linear.bias.float()
+    return y.to(x.dtype)
+
+
+def frames_gathered(module_forward, x: torch.Tensor, sp, frames_dim: int = 1) -> torch.Tensor:
+    """``module_forward(x)`` on every rank's frames of ``x`` (split over the
+    mesh axis ``sp`` along ``frames_dim``), keeping this rank's frames of
+    the result. Without ``sp``, ``module_forward(x)``."""
+    if sp is None:
+        return module_forward(x)
+    return sp.shard(module_forward(sp.all_gather(x, frames_dim)), frames_dim).contiguous()
 
 
 class CrossAttention(nn.Module):
@@ -128,6 +168,8 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Dropout(0.0))
 
+    tp = None  # the mesh axis splitting the heads (parallel/sharding.py)
+
     def forward(self, x, context=None):
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
@@ -143,7 +185,7 @@ class CrossAttention(nn.Module):
             s = k.shape[1]
             unfold = lambda t, length: t.reshape(b, length, self.heads, self.dim_head)
             out = attention_mh(unfold(q, n), unfold(k, s), unfold(v, s)).reshape(b, n, inner)
-        return self.to_out[0](out)
+        return row_parallel(self.to_out[0], out, self.tp)
 
 
 class GEGLU(nn.Module):
@@ -165,8 +207,10 @@ class GEGLUFeedForward(nn.Module):
         inner = dim * mult
         self.net = nn.Sequential(GEGLU(dim, inner), nn.Dropout(0.0), nn.Linear(inner, dim))
 
+    tp = None  # the mesh axis splitting the hidden width (parallel/sharding.py)
+
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        return row_parallel(self.net[2], self.net[0](x), self.tp)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -225,7 +269,12 @@ class TemporalTransformer(nn.Module):
         )
         self.proj_out = nn.Conv1d(inner, channels, 1)
 
+    sp = None  # the mesh axis splitting the frames (parallel/sharding.py)
+
     def forward(self, x):
+        return frames_gathered(self._forward, x, self.sp)
+
+    def _forward(self, x):
         b, f, h, w, c = x.shape
         y = self.norm(x).permute(0, 2, 3, 1, 4).reshape(b * h * w, f, c)
         y = conv1x1_as_linear(self.proj_in, y)
@@ -267,7 +316,12 @@ class TemporalConvBlock(nn.Module):
             layers.append((gn.weight, gn.bias, w, conv.bias))
         return layers
 
+    sp = None  # the mesh axis splitting the frames (parallel/sharding.py)
+
     def forward(self, x):
+        return frames_gathered(self._forward, x, self.sp)
+
+    def _forward(self, x):
         b, f, h, w, c = x.shape
         y = temporal_conv_chain(
             x.reshape(b, f, h * w, c), self.chain_layers(x.dtype), eps=self.conv1[0].eps

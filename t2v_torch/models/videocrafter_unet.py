@@ -77,12 +77,12 @@ class ResBlock3D(nn.Module):
                  kernel_size_t: int = 1, padding_t: int = 0):
         super().__init__()
         self.in_layers = nn.Sequential(
-            B.GroupNorm32(channels, silu=True), nn.SiLU(),
+            B.FrameGroupNorm32(channels, silu=True), nn.SiLU(),
             Conv3dFactorized(channels, out_channels, kernel_size_t, padding_t),
         )
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, out_channels))
         self.out_layers = nn.Sequential(
-            B.GroupNorm32(out_channels, silu=True), nn.SiLU(), nn.Dropout(0.0),
+            B.FrameGroupNorm32(out_channels, silu=True), nn.SiLU(), nn.Dropout(0.0),
             Conv3dFactorized(out_channels, out_channels, kernel_size_t, padding_t),
         )
         self.skip_connection = (
@@ -152,11 +152,26 @@ class TemporalCrossAttention(nn.Module):
             self.relative_position_k = RelativePosition(dim_head, temporal_length)
             self.relative_position_v = RelativePosition(dim_head, temporal_length)
 
+    tp = None  # the mesh axis splitting the heads (parallel/sharding.py)
+    sp = None  # the mesh axis splitting the frames
+
     def forward(self, x, frame_split: int | None = None, mask=None):
         """``mask`` (broadcastable to (T, T), 1 = attend) adds
         (1 - mask)·(-1e9) to the float32 scores; a masked call takes the
         plain version, which the rel-pos kernel's contract does not
-        cover."""
+        cover. Under ``sp`` x holds this rank's frames: they are gathered,
+        every frame attends all T, and this rank's frames come back."""
+        if self.sp is None:
+            return self._forward(x, frame_split, mask)
+        if not frame_split:
+            return B.frames_gathered(lambda z: self._forward(z, None, mask), x, self.sp)
+        x4 = x.reshape(-1, frame_split, *x.shape[1:])
+        y4 = B.frames_gathered(
+            lambda z: self._forward(z.flatten(0, 1), z.shape[1], mask).reshape(z.shape),
+            x4, self.sp)
+        return y4.reshape(x.shape)
+
+    def _forward(self, x, frame_split, mask):
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         shape = q.shape
         if frame_split:
@@ -170,7 +185,7 @@ class TemporalCrossAttention(nn.Module):
         else:
             k2 = v2 = q.new_zeros((t, t, self.dim_head))
         out = relpos_attention(q, k, v, k2, v2, self.heads, t, self.dim_head ** -0.5, mask=mask)
-        return self.to_out[0](out.reshape(shape))
+        return B.row_parallel(self.to_out[0], out.reshape(shape), self.tp)
 
 
 class BasicTransformerBlockST(nn.Module):
@@ -215,7 +230,7 @@ class SpatialTemporalTransformer(nn.Module):
                  use_relative_position: bool = True):
         super().__init__()
         inner = heads * dim_head
-        self.norm = B.GroupNorm32(channels, eps=1e-6)
+        self.norm = B.FrameGroupNorm32(channels, eps=1e-6)
         self.proj_in = nn.Conv3d(channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlockST(inner, heads, dim_head, context_dim, temporal_length,
@@ -416,7 +431,7 @@ class VideoCrafterUNet(nn.Module):
         self.output_blocks = nn.ModuleList(
             [nn.ModuleList([_make(d, cfg) for d in entry]) for entry in topo.decoder])
         self.out = nn.Sequential(
-            B.GroupNorm32(cfg.model_channels, silu=True), nn.SiLU(),
+            B.FrameGroupNorm32(cfg.model_channels, silu=True), nn.SiLU(),
             Conv3dFactorized(cfg.model_channels, cfg.out_channels, cfg.kernel_size_t,
                              cfg.padding_t),
         )

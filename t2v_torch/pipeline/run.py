@@ -13,15 +13,25 @@ reference's ``render.run`` + ``process_modelscope`` orchestration):
   * PNG frame dump + ``args.txt`` infotext + mp4 stitch with metadata +
     base64 data URLs.
 
-It runs one device's serial loop. A VideoCrafter model loads by name
+A request runs one device's serial loop, or with ``dp/tp/sp_shards`` above
+1 the sharded sampler (``_run_dp``). A VideoCrafter model loads by name
 (``load_vc_pipeline``; ``'<videocrafter>'`` implies the family) and answers
 through its own ``infer``: ``vc_sample_type`` (DDIM, DPM++ 2M or the DDPM
 chain, which takes no step callback), ``vc_uc_type``, LVDM mask inpainting
 from ``args.inpainting_image``, and the depth adapter (``adapter_ckpt`` with
 ``adapter_video``: an RGB video whose depth MiDaS estimates when
 ``depth_ckpt`` or a ``depth_estimator`` is given, else precomputed depth
-maps). Sharded sampling (``dp/tp/sp_shards`` > 1) is refused until the
-multi-GPU slice.
+maps).
+
+Sharded sampling (``parallel/dp_sample.py``): with a process group of at
+least dp·tp·sp ranks (``parallel/multihost.initialize``, or torchrun), the
+batch_count samples split over dp, the frames over sp and the UNet's heads
+over tp, from rank 0's seed; rank 0 decodes and writes every batch. Without
+a group, the request runs as one batched loop on this process's device.
+VideoCrafter's DDPM chain keeps the serial loop. A group of several ranks
+that the request would not use (no shard count above 1, the DDPM chain, a
+mesh larger than the group) is refused (``group_refusal``): every rank
+would answer the whole request.
 """
 
 from __future__ import annotations
@@ -42,7 +52,11 @@ from t2v_torch.core.dtypes import Policy
 from t2v_torch.core.state import InterruptedException, JobState, SkippedException
 from t2v_torch.core.state import state as default_state
 from t2v_torch.media.video import ffmpeg_stitch_video, vid2frames, video_to_data_url
-from t2v_torch.pipeline.pipeline import ModelScopePipeline, load_pipeline
+from t2v_torch.parallel import multihost
+from t2v_torch.parallel.dp_sample import dp_sample, frames_split, sample_generators
+from t2v_torch.parallel.mesh import get_mesh
+from t2v_torch.parallel.sharding import parallel_unet
+from t2v_torch.pipeline.pipeline import ModelScopePipeline, _spatial_scale, load_pipeline
 from t2v_torch.pipeline.videocrafter import load_vc_pipeline
 
 
@@ -78,14 +92,24 @@ def _retention(keep_in_vram) -> str:
     raise ValueError(f"invalid keep_in_vram value {keep_in_vram!r}")
 
 
-def _refuse_later_slices(*, dp_shards, tp_shards, sp_shards) -> None:
-    """Name what the port does not run yet, and the slice that brings it."""
-    shards = {"dp_shards": dp_shards, "tp_shards": tp_shards, "sp_shards": sp_shards}
-    asked = [f"{k}={v}" for k, v in shards.items() if v > 1]
-    if asked:
-        raise NotImplementedError(
-            f"run: {', '.join(asked)}: sharded sampling is not ported yet (the multi-GPU "
-            "slice); the port samples on one device")
+def group_refusal(world: int, shards: tuple[int, int, int], is_vc: bool,
+                  vc_sample_type: str = "ddim") -> str | None:
+    """Why a request with (dp, sp, tp) = ``shards`` cannot use a process
+    group of ``world`` ranks, or None when it can (or there is no group)."""
+    if world <= 1:
+        return None
+    dp, sp, tp = shards
+    if max(shards) == 1:
+        return (f"{world} ranks were started, but no shard count is above 1: every rank would "
+                "answer the whole request; start one process, or split it with "
+                "dp/tp/sp_shards")
+    if is_vc and vc_sample_type == "ddpm":
+        return (f"{world} ranks were started, but the VideoCrafter DDPM chain runs the serial "
+                "loop on one device: start one process, or sample with 'ddim' or 'dpm++ 2m'")
+    if world < dp * sp * tp:
+        return (f"a dp={dp} x sp={sp} x tp={tp} mesh needs {dp * sp * tp} ranks; {world} were "
+                "started")
+    return None
 
 
 def _adapter_features(pipe, args: T2VArgs, adapter_ckpt: str, adapter_video: str | None,
@@ -210,7 +234,9 @@ def run(
     job_state = job_state or default_state
     sanity_check_args(args)
     retention = _retention(keep_in_vram)
-    _refuse_later_slices(dp_shards=dp_shards, tp_shards=tp_shards, sp_shards=sp_shards)
+    for name, v in (("dp_shards", dp_shards), ("tp_shards", tp_shards), ("sp_shards", sp_shards)):
+        if v < 1:
+            raise ValueError(f"{name}={v}: a shard count is at least 1")
 
     global _warm_pipe
     if pipe is None:
@@ -237,6 +263,10 @@ def run(
                                      keep_in_vram=keep, device=device)
     _warm_pipe = pipe if retention != "none" else None
     is_ms = isinstance(pipe, ModelScopePipeline)
+    refusal = group_refusal(multihost.process_count(), (dp_shards, sp_shards, tp_shards),
+                            not is_ms, vc_sample_type)
+    if refusal:
+        raise ValueError(refusal)
     # a warm pipe retained under 'Main Model Only' comes back without its
     # VAE and text tower: read them again (a no-op when resident)
     pipe.reload_aux()
@@ -259,6 +289,14 @@ def run(
             features_adapter = _adapter_features(pipe, args, adapter_ckpt, adapter_video,
                                                  depth_ckpt, depth_estimator)
         resolved_seed = rng_lib.resolve_seed(args.seed)
+        # the VideoCrafter DDPM chain (all the schedule's timesteps, not a
+        # registry sampler) keeps the serial loop
+        if max(dp_shards, tp_shards, sp_shards) > 1 and (is_ms or vc_sample_type != "ddpm"):
+            return _run_dp(
+                pipe, args, out_args, outdir, resolved_seed, timestring, save_frames,
+                (dp_shards, sp_shards, tp_shards), features_adapter, job_state,
+                latents=latents, is_vid2vid=is_vid2vid, skip_steps=skip_steps,
+                inpaint_mode=inpaint_mode, vc_sample_type=vc_sample_type, vc_uc_type=vc_uc_type)
 
         for batch in range(args.batch_count):
             if job_state.interrupted:
@@ -335,6 +373,105 @@ def run(
         # or a save raised
         if retention == "model":
             pipe.release_aux()
+
+
+def _run_dp(pipe, args: T2VArgs, out_args, outdir, resolved_seed: int, timestring: str,
+            save_frames: bool, shards: tuple[int, int, int], features_adapter,
+            job_state: JobState, *, latents=None, is_vid2vid=False, skip_steps=0,
+            inpaint_mode="initial_only", vc_sample_type="ddim", vc_uc_type=None) -> RunResult:
+    """Every batch of the request in one sharded sampling
+    (``parallel/dp_sample.py``) over a (dp, sp, tp) = ``shards`` mesh of the
+    default process group, or in one batched loop without a group of that
+    many ranks. The sampling takes no step callback: progress is reported
+    at its end, and interrupt and skip act between the per-sample decodes.
+    Every rank samples from rank 0's seed; rank 0 decodes and writes every
+    batch; the other ranks return an empty result.
+
+    ModelScope's masked inpainting start is built per sample with seed + i,
+    as the serial loop builds batch i's; LVDM's static mask and the vid2vid
+    source broadcast over the samples."""
+    n = args.batch_count
+    steps = args.steps - skip_steps
+    job_state.begin_job(0, n, steps)
+    dp, sp, tp = shards
+    mesh = None
+    if multihost.process_count() > 1:  # group_refusal saw a group of dp·sp·tp ranks or more
+        mesh = get_mesh(dp, sp, tp)
+        # a seed of -1 was drawn on each rank: the samples follow rank 0's
+        resolved_seed = multihost.shared_seed(resolved_seed)
+        if not mesh.in_mesh:
+            return RunResult()
+
+    is_ms = isinstance(pipe, ModelScopePipeline)
+    ss = _spatial_scale(pipe.vae_cfg)
+    lat_c = 4 if is_ms else pipe.cfg.in_channels
+    sample_shape = (args.frames, args.height // ss, args.width // ss, lat_c)
+    args_seeded = args.replace(seed=resolved_seed)
+
+    mask = image_latents = None
+    strength = float(args.strength)
+    if args.inpainting_frames > 0 and args.inpainting_image:
+        import cv2
+
+        img = cv2.imread(args.inpainting_image)
+        if img is None:
+            raise ValueError(f"{args.inpainting_image}: not a readable image")
+        img = cv2.resize(cv2.cvtColor(img, cv2.COLOR_BGR2RGB), (args.width, args.height))
+        if is_ms:
+            rows = []
+            for gen in sample_generators(resolved_seed, n, pipe.device):
+                masked_i, mask, image_latents = pipe.build_inpainting_inputs(img, args_seeded, gen)
+                rows.append(masked_i)
+            latents, strength, is_vid2vid = torch.cat(rows), 1.0, False
+        else:
+            mask, image_latents = pipe.build_inpainting_inputs(img, args_seeded)
+            inpaint_mode = "lvdm_static"
+
+    sp_axis = mesh.sp if mesh is not None and frames_split(args.frames, sp) else None
+    if is_ms:
+        pipe.text_encoder.comma_backtrack = args.comma_padding_backtrack
+        pipe.text_encoder.enable_emphasis = args.enable_emphasis
+        conditioning = pipe.text_encoder.encode_request(args.prompt, args.n_prompt, steps)
+        cond, uncond = conditioning.cond, conditioning.uncond
+        sampler, combine, param = args.sampler, None, pipe.unet_cfg.parameterization
+        apply_fn = lambda x, t, ctx: pipe.unet(x, t, ctx)
+    else:
+        if vc_sample_type == "dpm++ 2m" and (mask is not None or vc_uc_type):
+            raise ValueError("sample_type='dpm++ 2m' does not support mask inpainting or "
+                             "uc_type CFG variants — use 'ddim'")
+        cond, uncond = pipe.encode_text([args.prompt]), pipe.encode_text([args.n_prompt])
+        sampler = {"ddim": "DDIM", "dpm++ 2m": "DPM++ 2M"}[vc_sample_type]
+        combine, param = vc_uc_type, pipe.cfg.parameterization
+        feats = features_adapter
+        if feats is not None and sp_axis is not None:
+            # (B, T, h, w, c) maps follow the frames; (B, h, w, c) ones are per sample
+            feats = tuple(sp_axis.shard(f, 1) if f.dim() == 5 else f for f in feats)
+        apply_fn = pipe.make_apply_fn(feats, pipe._resolve_temporal_context(args))
+
+    with parallel_unet(pipe.unet, tp=mesh.tp if mesh is not None else None, sp=sp_axis):
+        x0 = dp_sample(
+            apply_fn, pipe.schedule, steps=steps, sample_shape=sample_shape, n_samples=n,
+            cond=cond, uncond=uncond, guidance_scale=args.cfg_scale, eta=args.eta,
+            sampler_name=sampler, seed=resolved_seed, mesh=mesh, parameterization=param,
+            latents=latents, is_vid2vid=is_vid2vid, strength=strength, mask=mask,
+            image_latents=image_latents, inpaint_mode=inpaint_mode, cfg_combine_mode=combine)
+    job_state.sampling_step = steps
+
+    result = RunResult()
+    if not multihost.is_primary():
+        return result
+    for batch in range(n):
+        if job_state.interrupted:
+            result.interrupted = True
+            break
+        if job_state.skipped:
+            job_state.skipped = False
+            continue
+        frames = pipe.decode_latents(x0[batch])
+        _emit_batch(
+            result, list(frames), pipe.create_infotext(args, resolved_seed + batch), args,
+            out_args, outdir, timestring, batch, resolved_seed + batch, save_frames, pipe.device)
+    return result
 
 
 def _emit_batch(

@@ -171,8 +171,10 @@ def test_output_options_and_metadata_reader(tiny_pipe, tmp_path, warm_pipe_reset
 
 def test_refusals_name_what_and_which_slice(tmp_path, tiny_pipe, warm_pipe_reset, monkeypatch):
     """What the port refuses (textual inversion on VideoCrafter, the depth
-    adapter on ModelScope, sharded sampling until the multi-GPU slice), and
-    VideoCrafter's branches, which answer through ``run``."""
+    adapter on ModelScope, a shard count below 1, a torchrun launch whose
+    request leaves its ranks unused), sharded sampling from the
+    CLI and ``run`` (without a process group: every sample in one batched
+    loop), and VideoCrafter's branches, which answer through ``run``."""
     import cv2
 
     from _torch_model_dir import VOCAB, small_vc_pipeline
@@ -186,25 +188,44 @@ def test_refusals_name_what_and_which_slice(tmp_path, tiny_pipe, warm_pipe_reset
         (["--model-type", "VideoCrafter", "--embeddings-dir", "e"],
          "--embeddings-dir: textual inversion splices into the ModelScope text encoder"),
         (["--adapter-ckpt", "a"], "--adapter-ckpt: the depth adapter conditions VideoCrafter"),
-        (["--adapter-ckpt", "a", "--dp-shards", "2"], "--adapter-ckpt: .*; --dp-shards 2"),
-        (["--dp-shards", "2"], "--dp-shards 2: sharded sampling .* multi-GPU slice"),
-        (["--tp-shards", "2"], "--tp-shards 2"), (["--sp-shards", "4"], "--sp-shards 4"),
+        (["--adapter-ckpt", "a", "--dp-shards", "2"],
+         "^t2v_torch.generate: --adapter-ckpt: the depth adapter conditions VideoCrafter "
+         r"\(--model-type VideoCrafter\)$"),
     ]
     for argv, match in cli_cases:
         with pytest.raises(SystemExit, match=match):
             main(["--device", "cpu", *argv])
+    # a torchrun launch of two ranks whose request would not use them is
+    # refused before any rank joins the group or loads a model
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    launch_cases = [
+        ([], "2 ranks were started, but no shard count is above 1"),
+        (["--model-type", "VideoCrafter", "--vc-sample-type", "ddpm", "--dp-shards", "2"],
+         "2 ranks were started, but the VideoCrafter DDPM chain runs the serial loop"),
+        (["--dp-shards", "2", "--sp-shards", "2"],
+         "a dp=2 x sp=2 x tp=1 mesh needs 4 ranks; 2 were started"),
+    ]
+    for argv, match in launch_cases:
+        with pytest.raises(SystemExit, match="^t2v_torch.generate: " + match):
+            main(["--device", "cpu", "--tiny", *argv])
+    monkeypatch.delenv("WORLD_SIZE")
+    request = ["--device", "cpu", "--tiny", "--steps", "1", "--frames", "2", "--width", "32",
+               "--height", "32", "--batch-count", "2", "--skip-video-creation"]
+    for shards in (["--dp-shards", "2"], ["--tp-shards", "2"], ["--sp-shards", "2"]):
+        outdir = tmp_path / "cli" / shards[0]
+        assert main([*request, *shards, "--outdir", str(outdir)]) == 0
+        written = sorted(os.listdir(outdir))
+        assert len(written) == 2 and len(_pngs(outdir / written[1])) == 2, shards
     run = warm_pipe_reset.run
     args = T2VArgs(prompt="x", steps=1, frames=2, width=32, height=32, seed=1)
     out = T2VOutputArgs(skip_video_creation=True)
     kw = dict(outdir=str(tmp_path), save_frames=False)
-    for extra, match in [
-        (dict(dp_shards=2), "dp_shards=2: sharded sampling is not ported yet .the multi-GPU slice"),
-        (dict(tp_shards=2, sp_shards=2), "tp_shards=2, sp_shards=2"),
-        (dict(adapter_ckpt="a", dp_shards=2), "dp_shards=2"),
-        (dict(depth_ckpt="d", sp_shards=2), "sp_shards=2"),
-    ]:
-        with pytest.raises(NotImplementedError, match=match):
-            run(args, out, pipe=tiny_pipe, **kw, **extra)
+    for extra in (dict(dp_shards=2), dict(tp_shards=2, sp_shards=2),
+                  dict(depth_ckpt="d", sp_shards=2)):
+        res = run(args.replace(batch_count=2), out, pipe=tiny_pipe, **kw, **extra)
+        assert [t.split("Seed: ")[1][0] for t in res.infotexts] == ["1", "2"], extra
+    with pytest.raises(ValueError, match="dp_shards=0: a shard count is at least 1"):
+        run(args, out, pipe=tiny_pipe, dp_shards=0, **kw)
     # VideoCrafter loads by name ('<videocrafter>' implies the family) and
     # answers its default branch ...
     vc = small_vc_pipeline()
@@ -323,3 +344,28 @@ def test_fastapi_app_through_the_stub(tiny_pipe, monkeypatch, tmp_path, warm_pip
     assert r.json()["mp4s"][0].startswith("data:video/mp4;base64,")
     assert warm_pipe_reset._warm_pipe is None
     assert stub.drive(app, "POST", "/t2v/run", prompt="x", steps="NaN").status_code == 422
+
+
+def test_phase_times_match_jax(monkeypatch):
+    """``PhaseTimes`` against the JAX package's on the same phases and the
+    same clock readings: a phase entered twice sums, one that raises still
+    counts, and the summaries are equal."""
+    import time
+
+    from t2v.core.profiling import PhaseTimes as JPhaseTimes
+    from t2v_torch.core.profiling import PhaseTimes
+
+    def drive(cls):
+        clock = iter([0.0, 0.5, 1.0, 3.25, 4.0, 4.125, 5.0, 5.75])
+        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
+        pt = cls()
+        for name in ("text", "sample", "text"):
+            with pt.phase(name):
+                pass
+        with pytest.raises(KeyError), pt.phase("decode"):
+            raise KeyError("decode")
+        return pt
+
+    mine, theirs = drive(PhaseTimes), drive(JPhaseTimes)
+    assert mine.times == theirs.times == {"text": 0.625, "sample": 2.25, "decode": 0.75}
+    assert mine.summary() == theirs.summary() == "text=0.62s sample=2.25s decode=0.75s"
