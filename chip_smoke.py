@@ -105,11 +105,35 @@ and prints no result line):
     then ``python -m torch.distributed.run --standalone --nproc-per-node 2
     -m t2v_torch.cli.generate --dp-shards 2`` on a directory saved from
     the serial pipeline (rank 0 writes both batches once, bit-identical);
-11. print the card's name and power limit, one ``{"kernels": [...]}`` line,
+11. training over a mesh (``drive_meshtrain``): the attention Functions'
+    gradients at the tp- and sp-local shapes (``check_mesh_gradients``,
+    also in ``--only kernels``); the legacy blocks at UNetSD's widths (the
+    attention block's flash call against its plain version on its own
+    inputs, the residual block in bf16 against float32 on the CPU); two
+    ranks this script starts (``--meshtrain-rank``) sharing the card over
+    gloo train both full-width models in bf16 on seeded clips (batch x 16
+    frames at 256x256): ModelScope LoRA rank 4 at dp = 2, tp = 2 and
+    sp = 2, ModelScope full with EMA 0.9999 at dp = 2, VideoCrafter full
+    at tp = 2 and sp = 2, two steps each; each case's first step (loss and
+    every gathered gradient leaf) against the one-rank step on the same
+    inputs and draw, two planted faults that gradient gate must catch and
+    two (a rank on the wrong share) that it or the loss gate must, the
+    trained leaves moved and the pipeline's not, launches a rank against
+    the topology's, seconds a step, peak memory and bytes all-reduced a
+    step; then the trainer CLI's ``main`` (``t2v_torch.cli.train
+    --model-type VideoCrafter --sp 2``) under ``python -m
+    torch.distributed.run --standalone --nproc-per-node 2`` for two steps
+    and ``--resume`` to a third, the plain versions barred and each rank's
+    launches held against the topology's, its first step's loss and
+    gradients against one process's on the same clips and seed (rank 0
+    writes each
+    ``step_N/`` once; the first loads through ``from_model_dir`` at the
+    full shapes);
+12. print the card's name and power limit, one ``{"kernels": [...]}`` line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a GPU, and in a directory without the port.
-``--only kernels|small|modelscope|generate|modes|videocrafter|vcgenerate|vcbranches|parallel|train``
+``--only kernels|small|modelscope|generate|modes|videocrafter|vcgenerate|vcbranches|parallel|train|meshtrain``
 runs the build and those groups of phases (a comma-separated list, for work
 on one of them; it prints no result line); ``--only vcddpm`` answers the
 full-width DDPM request (1,000 steps), which the default run leaves out.
@@ -122,6 +146,8 @@ import contextlib
 import gc
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -3187,6 +3213,53 @@ def check_gradients() -> None:
     _release()
 
 
+def check_mesh_gradients() -> None:
+    """The attention Functions at the tp- and sp-local shapes of the mesh
+    training paths (``meshtrain``): a split attention runs on heads / 2,
+    split frames on 8 of the 16. The temporal conv chain and the sp rel-pos
+    sites run gathered, at the serial shapes of ``check_gradients``."""
+    import torch
+
+    from t2v_torch.kernels import flash_attention as fa
+    from t2v_torch.kernels import fused_mha as fm
+    from t2v_torch.kernels import relpos_mha as rp
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    bf = lambda *shape: torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    before = _read_counters()
+    flash = lambda scale: (lambda q, k, v: fa.FlashAttentionFunction.apply(q, k, v, scale))
+    flash_plain = lambda scale: (lambda q, k, v: fa.flash_attention_plain(q, k, v, scale))
+    _grad_check("flash (40, 1024, 1024, 64): ModelScope sp", flash(0.125), flash_plain(0.125),
+                [bf(40 * TRAIN_B, 1024, 64) for _ in range(3)], g)
+    _grad_check("flash (64, 1024, 1024, 40): VideoCrafter tp, sp", flash(40 ** -0.5),
+                flash_plain(40 ** -0.5), [bf(64 * TRAIN_B, 1024, 40) for _ in range(3)], g)
+    for rows, width, heads, where in ((16, 320, 5, "tp"), (8, 640, 10, "sp")):
+        _grad_check(f"fused_self_mha ({rows}, 256, {width}) {heads} h: ModelScope {where}",
+                    lambda q, k, v, h=heads: fm.FusedSelfMHAFunction.apply(q, k, v, h, 0.125),
+                    lambda q, k, v, h=heads: fm.fused_self_mha_plain(q, k, v, h, 0.125),
+                    [bf(rows * TRAIN_B, 256, width) for _ in range(3)], g)
+    for n, width, heads, where in ((16384, 160, 4, "tp"), (8192, 320, 8, "sp")):
+        _grad_check(f"fused_cross_mha (1, {n}, {width}) x 77, {heads} h: VideoCrafter {where}",
+                    lambda q, k, v, h=heads: fm.FusedCrossMHAFunction.apply(q, k, v, h,
+                                                                            40 ** -0.5),
+                    lambda q, k, v, h=heads: fm.fused_cross_mha_plain(q, k, v, h, 40 ** -0.5),
+                    [bf(TRAIN_B, n, width), bf(TRAIN_B, 77, width), bf(TRAIN_B, 77, width)], g)
+    _grad_check("relpos_mha (16, 1024, 160) 4 h, T = 16: VideoCrafter tp",
+                lambda *a: rp.RelposMHAFunction.apply(*a, 4, 16, 40 ** -0.5),
+                lambda *a: rp.relpos_mha_plain(*a, 4, 16, 40 ** -0.5),
+                [*(bf(16 * TRAIN_B, 1024, 160) for _ in range(3)), bf(16, 16, 40),
+                 bf(16, 16, 40)], g)
+    after = _read_counters()
+    moved = {k: after[k] - before[k] for k in after}
+    want = {k: 0 for k in after}
+    want.update(flash_attention=2, flash_bwd_dkv=2, flash_bwd_dq=2, fused_self_mha=2,
+                fused_cross_mha=2, relpos_mha=1)
+    if moved != want:
+        _fail(f"mesh-shape gradient checks launched {moved}, expected {want}")
+    _release()
+
+
 def _lora_loss_and_grads(pipe, lora_np, batch_np, draw_np, device):
     """One LoRA loss and its gradients on ``pipe`` from numpy inputs."""
     import numpy as np
@@ -3726,31 +3799,36 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_procs(label: str, cmds: list, logs: list) -> None:
+def _run_procs(label: str, cmds: list, logs: list,
+               keep=("UNet call", "backend", "gloo", "Error")) -> None:
     """Start ``cmds`` together, each writing to its log, and wait for all
     of them; fails (after stopping the others) if one does not end with 0
-    within PAR_TIMEOUT, printing the end of its log."""
+    within PAR_TIMEOUT, printing the end of its log; a process that fails
+    stops the others at once (its peers would wait in a collective). Prints
+    the log lines holding a word of ``keep``."""
     procs = []
     try:
         for cmd, log in zip(cmds, logs):
             with open(log, "w") as f:
                 procs.append(subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
-                                              env=_par_env(), cwd=REPO))
+                                              env=_par_env(), cwd=REPO,
+                                              start_new_session=True))
         deadline = time.monotonic() + PAR_TIMEOUT
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        _fail(f"{label}: not done within {PAR_TIMEOUT} s")
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                _fail(f"{label}: not done within {PAR_TIMEOUT} s")
+            time.sleep(0.5)
     finally:
-        for p in procs:
+        for p in procs:  # each leads a session of its own: its children go with it
             if p.poll() is None:
-                p.kill()
+                os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
         for log in logs:
             text = Path(log).read_text()
-            keep = [ln for ln in text.splitlines()
-                    if any(w in ln for w in ("UNet call", "backend", "gloo", "Error"))]
-            print(f"{label}: {Path(log).name}: " + ("\n  ".join([""] + keep) if keep else
+            kept = [ln for ln in text.splitlines() if any(w in ln for w in keep)]
+            print(f"{label}: {Path(log).name}: " + ("\n  ".join([""] + kept) if kept else
                                                    "(no check lines)"), flush=True)
     codes = [p.returncode for p in procs]
     if codes != [0] * len(procs):
@@ -3903,17 +3981,678 @@ def drive_parallel() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Training over a mesh (``--only meshtrain``): two ranks sharing the card over
+# gloo at dp = 2, tp = 2 and sp = 2, the trainer CLI under torchrun, and the
+# legacy blocks at UNetSD's widths
+
+MT_RANKS = 2
+MT_STEPS = 2
+# a gradient leaf's distance from the one-rank step: max |g - g0| over
+# max |g0| of the leaf, or over MT_GRAD_FLOOR of the tree's largest |g0|
+# where the leaf's is smaller (a bias just ahead of a GroupNorm has a true
+# gradient of 0, and bf16 noise there). In bf16 the worst of some 1,000
+# leaves lands at 1-4.5% of its max |g| (the median at 0.05%): the limit
+# keeps twice that, and the planted faults land 17x and more beyond it
+MT_GRAD_SHARE = 0.1
+MT_GRAD_FLOOR = 1e-2
+# the first step's loss, relative: the bf16 mesh steps land within 2.3e-3 of
+# the one-rank step. A rank on the wrong sample moves it by 3.9e-2, on the
+# wrong frames by 9.5e-4 only (the share faults below): the gradients
+# (MT_GRAD_SHARE) are the gate that sees frames
+MT_LOSS_SHARE = 1e-2
+# (label, family, "lora" | "full", the mesh axis of size 2, EMA decay, global batch)
+MT_CASES = (
+    ("ms_lora_dp", "modelscope", "lora", "dp", None, 2),
+    ("ms_lora_tp", "modelscope", "lora", "tp", None, 1),
+    ("ms_lora_sp", "modelscope", "lora", "sp", None, 1),
+    ("ms_full_dp", "modelscope", "full", "dp", 0.9999, 2),
+    ("vc_full_tp", "videocrafter", "full", "tp", None, 1),
+    ("vc_full_sp", "videocrafter", "full", "sp", None, 1),
+)
+# the planted faults, each on the case it names: LoRA at tp = 2 without the
+# tp sum of its factors' gradients; VideoCrafter at sp = 2 with the
+# GroupNorm sums' backward taken as the identity
+MT_FAULTS = {"ms_lora_tp": "no tp sum of the LoRA factors' gradients",
+             "vc_full_sp": "identity backward on the sp GroupNorm sums"}
+# the planted faults of a wrong share: every rank takes the first share of
+# the global batch (as a trainer that split its batch or frames wrongly
+# would); the loss or the gradient gate must catch each
+MT_SHARE_FAULTS = {"ms_lora_dp": "both dp ranks train on the first sample",
+                   "vc_full_sp": "both sp ranks take the first frames"}
+MT_CLI_STEPS = 2
+
+
+class _Traffic:
+    """Bytes handed to ``all_reduce`` and received by ``all_gather`` while
+    ``on``."""
+
+    def __init__(self):
+        self.reduced = self.gathered = 0
+        self.on = True
+
+
+@contextlib.contextmanager
+def _counting_traffic(traffic: _Traffic):
+    import torch.distributed as dist
+
+    all_reduce, all_gather = dist.all_reduce, dist.all_gather
+
+    def counted_reduce(tensor, *args, **kwargs):
+        traffic.reduced += traffic.on * tensor.numel() * tensor.element_size()
+        return all_reduce(tensor, *args, **kwargs)
+
+    def counted_gather(parts, tensor, *args, **kwargs):
+        traffic.gathered += traffic.on * len(parts) * tensor.numel() * tensor.element_size()
+        return all_gather(parts, tensor, *args, **kwargs)
+
+    dist.all_reduce, dist.all_gather = counted_reduce, counted_gather
+    try:
+        yield
+    finally:
+        dist.all_reduce, dist.all_gather = all_reduce, all_gather
+
+
+def _mt_inputs(pipe, family: str, batch: int, seed: int):
+    """A case's global batch (seeded clips through ``compute_latents``,
+    captions through the text tower) and its global (t, noise) draw."""
+    import torch
+
+    clips = _synthetic_clips(seed, batch)
+    captions = [_CAPTIONS[i % len(_CAPTIONS)] for i in range(batch)]
+    with torch.no_grad(), _no_plain_on_cuda():
+        latents = torch.cat([pipe.compute_latents(c) for c in clips], dim=0)
+        context = (pipe.encode_text(captions) if family == "videocrafter" else
+                   torch.stack([pipe.text_encoder.encode_line(c) for c in captions]))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.randint(0, pipe.schedule.num_timesteps, (batch,), generator=g, device="cuda")
+    noise = torch.randn(latents.shape, generator=g, device="cuda")
+    return {"latents": latents, "context": context}, (t, noise)
+
+
+def _mt_lora(pipe, seed: int):
+    """(a rank-4 LoRA tree, the module index): A as ``init_lora`` draws it,
+    B given signal (at zero it would zero every gradient of A)."""
+    import torch
+
+    from t2v_torch.pipeline import lora as L
+
+    index = L.unet_module_index(pipe.unet_cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tree = L.init_lora(dict(pipe.unet.named_parameters()), index, 4, g)
+    with torch.no_grad():
+        for ab in tree.values():
+            ab["lora_B"].copy_(0.02 * torch.randn(ab["lora_B"].shape, generator=g,
+                                                  device="cuda"))
+    return tree, index
+
+
+def _mt_step(pipe, kind: str, mesh, ema, lora):
+    """(state, step, tp layout) of a case on ``mesh`` (None: one rank)."""
+    from t2v_torch.parallel import train as T
+    from t2v_torch.parallel.sharding import tp_layout
+
+    cfg = pipe.cfg if hasattr(pipe, "clip") else pipe.unet_cfg
+    layout = tp_layout(pipe.unet, mesh.tp.size) if mesh is not None else {}
+    apply_fn = T.module_apply_fn(pipe.unet, mesh)
+    opt = T.make_optimizer(1e-4, 1e-2)
+    base = dict(pipe.unet.named_parameters())
+    if kind == "lora":
+        tree, index = lora
+        state = T.init_train_state(tree, opt, mesh)
+        step = T.make_lora_train_step(apply_fn, pipe.schedule, base, index, mesh,
+                                      parameterization=cfg.parameterization, layout=layout)
+    else:
+        state = T.init_train_state(base, opt, mesh, with_ema=ema is not None, layout=layout)
+        step = T.make_train_step(apply_fn, pipe.schedule, mesh, ema_decay=ema,
+                                 parameterization=cfg.parameterization)
+    return state, step, layout
+
+
+def _mt_distance(got: dict, want: dict) -> dict:
+    """The gradient gate's reading of ``got`` (on the card) against
+    ``want`` (the one-rank step's, on the host): the worst leaf's distance
+    (the ``MT_GRAD_SHARE`` comment), its name, and the median leaf's."""
+    top = max(w.abs().max().item() for w in want.values())
+    dist = {}
+    for name, w in want.items():
+        w = w.to(got[name].device)
+        err = (got[name].float() - w.float()).abs().max().item()
+        dist[name] = err / max(w.abs().max().item(), MT_GRAD_FLOOR * top)
+    worst = max(dist, key=dist.get)
+    return {"worst": dist[worst], "leaf": worst, "median": sorted(dist.values())[len(dist) // 2],
+            "leaves": len(dist)}
+
+
+def _mt_case(rank: int, pipe, per_call: dict, case: tuple, seed: int, failures: list) -> dict:
+    """One case on this rank: rank 0 takes the one-rank step's loss and
+    gradients on the global batch and draw (the other rank waits); then
+    both ranks run MT_STEPS mesh steps on their shares (the first on the
+    same draw, split into ``loss_and_grads`` and ``apply_gradients``),
+    counting launches and collective traffic; the first step's gradients
+    are gathered and rank 0 holds them and the loss against the one-rank
+    step; then the planted fault, where the case has one. Appends to
+    ``failures`` what does not hold (the EMA rule on one leaf too), so that
+    both ranks run every case and the collectives stay paired."""
+    import torch
+    import torch.distributed as dist
+
+    from t2v_torch.parallel import train as T
+    from t2v_torch.parallel.mesh import Axis, get_mesh
+    from t2v_torch.parallel.sharding import gather_params
+
+    label, family, kind, axis, ema, batch = case
+    mesh = get_mesh(**{axis: 2})
+    glob, draw = _mt_inputs(pipe, family, batch, seed)
+    lora = _mt_lora(pipe, seed) if kind == "lora" else None
+    base_before = _fingerprint(pipe.unet.parameters())
+    ref = None
+    if rank == 0:
+        state, step, _ = _mt_step(pipe, kind, None, None, lora)
+        with _no_plain_on_cuda():
+            loss0, grads0 = step.loss_and_grads(state, glob, None, draw)
+        ref = (float(loss0), {n: g.cpu() for (n, _), g in zip(T.tree_items(state.params),
+                                                              grads0)})
+        del state, step, grads0
+        _release()
+    dist.barrier()
+
+    torch.cuda.reset_peak_memory_stats()
+    state, step, layout = _mt_step(pipe, kind, mesh, ema, lora)
+    names = [n for n, _ in T.tree_items(state.params)]
+    local = T.local_batch(mesh, glob)
+    before = _fingerprint(T.tree_leaves(state.params))
+    ema_name = names[0] if ema is not None else None
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    traffic, times, losses, rep = _Traffic(), [], [], {}
+    _reset_counters()
+    with _no_plain_on_cuda(), _counting_traffic(traffic):
+        for i in range(MT_STEPS):
+            if ema_name is not None:
+                ema_old = state.ema_params[ema_name].clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                loss, first = step.loss_and_grads(state, local, gen, draw)
+                step.apply_gradients(state, first)
+            else:
+                state, loss = step(state, local, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if i == 0:  # the first step's gradients, whole, against the one-rank step's
+                traffic.on = False
+                full = gather_params(dict(zip(names, first)), layout, mesh.tp)
+                if rank == 0:
+                    rep["grads"] = _mt_distance(full, ref[1])
+                del full, first
+                traffic.on = True
+            if ema_name is not None:
+                want = (ema_old * ema + state.params[ema_name].detach().float() * (1.0 - ema))
+                if not torch.allclose(state.ema_params[ema_name], want, rtol=1e-5, atol=1e-7):
+                    failures.append(f"{label}: EMA of {ema_name} is not decay * old + "
+                                    "(1 - decay) * new")
+    counts = _read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after = _fingerprint(T.tree_leaves(state.params))
+    moved = bool(torch.isfinite(after).all()) and not torch.equal(before, after)
+    same_base = torch.equal(base_before, _fingerprint(pipe.unet.parameters()))
+    del state
+    _release()
+
+    expected = {k: 0 for k in _counters()}
+    expected.update({k: MT_STEPS * v for k, v in per_call.items()})
+    expected["flash_bwd_dkv"] = expected["flash_bwd_dq"] = MT_STEPS * per_call["flash_attention"]
+    rep.update(seconds=times, losses=losses, peak_gib=peak, launches=counts,
+               reduced_bytes_per_step=traffic.reduced / MT_STEPS,
+               gathered_bytes_per_step=traffic.gathered / MT_STEPS)
+    if rank == 0:
+        loss_err = abs(losses[0] - ref[0]) / abs(ref[0])
+        rep.update(loss_ref=ref[0], loss_err=loss_err)
+
+    if label in MT_FAULTS:
+        state, step, _ = _mt_step(pipe, kind, mesh, ema, lora)
+        sound = Axis.all_reduce_sum
+        if kind == "lora":
+            step.tp_summed = frozenset()
+        else:
+            Axis.all_reduce_sum = lambda self, t, backward: sound(self, t, "identity")
+        try:
+            _, grads = step.loss_and_grads(state, local, None, draw)
+        finally:
+            Axis.all_reduce_sum = sound
+        fault = gather_params(dict(zip(names, grads)), layout, mesh.tp)
+        if rank == 0:
+            rep["fault"] = _mt_distance(fault, ref[1])
+        del state, step, grads, fault
+        _release()
+
+    if label in MT_SHARE_FAULTS:
+        state, step, _ = _mt_step(pipe, kind, mesh, ema, lora)
+        n, f = batch // mesh.dp.size, TRAIN_T // mesh.sp.size
+        first = {"latents": glob["latents"][:n, :f].contiguous(),
+                 "context": glob["context"][:n].contiguous()}
+        wrong, grads = step.loss_and_grads(state, first, None, draw)
+        fault = gather_params(dict(zip(names, grads)), layout, mesh.tp)
+        if rank == 0:
+            rep["share_fault"] = {"loss": abs(float(wrong) - ref[0]) / abs(ref[0]),
+                                  "grads": _mt_distance(fault, ref[1])}
+        del state, step, grads, fault
+        _release()
+
+    tag = f"meshtrain {label} rank {rank}"
+    print(f"{tag}: {batch} x {TRAIN_T} frames ({local['latents'].shape[0]} x "
+          f"{local['latents'].shape[1]} on this rank); losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; seconds a step "
+          f"{', '.join(f'{x:.3f}' for x in times)}; peak {peak:.2f} GiB; all-reduced "
+          f"{rep['reduced_bytes_per_step'] / 1e9:.4f} GB and all-gathered "
+          f"{rep['gathered_bytes_per_step'] / 1e9:.4f} GB a step; launches {counts}", flush=True)
+    if rank == 0:
+        g = rep["grads"]
+        print(f"{tag}: first step against the one-rank step: loss {losses[0]:.5f} vs "
+              f"{ref[0]:.5f} ({loss_err:.2e}, limit {MT_LOSS_SHARE}); gradients of "
+              f"{g['leaves']} leaves: worst {g['worst']:.4f} ({g['leaf']}), median "
+              f"{g['median']:.4f}, limit {MT_GRAD_SHARE}", flush=True)
+        if "share_fault" in rep:
+            f = rep["share_fault"]
+            caught = f["loss"] > MT_LOSS_SHARE or f["grads"]["worst"] > MT_GRAD_SHARE
+            print(f"{tag}: planted fault ({MT_SHARE_FAULTS[label]}): the first loss "
+                  f"{f['loss']:.2e} from the one-rank step's (limit {MT_LOSS_SHARE}), "
+                  f"gradients worst {f['grads']['worst']:.4f} ({f['grads']['leaf']}), median "
+                  f"{f['grads']['median']:.4f} (limit {MT_GRAD_SHARE}): the gates "
+                  f"{'catch it' if caught else 'MISS it'}", flush=True)
+            if not caught:
+                failures.append(f"{tag}: the loss and gradient gates pass the planted fault "
+                                f"({f})")
+        if "fault" in rep:
+            f = rep["fault"]
+            print(f"{tag}: planted fault ({MT_FAULTS[label]}): worst {f['worst']:.4f} "
+                  f"({f['leaf']}), median {f['median']:.4f}, limit {MT_GRAD_SHARE}: the gate "
+                  f"{'catches it' if f['worst'] > MT_GRAD_SHARE else 'MISSES it'}", flush=True)
+            if not f["worst"] > MT_GRAD_SHARE:
+                failures.append(f"{tag}: the gradient gate passes the planted fault "
+                                f"({f['worst']})")
+        if not (loss_err <= MT_LOSS_SHARE and g["worst"] <= MT_GRAD_SHARE):
+            failures.append(f"{tag}: the mesh step is not the one-rank step (loss {loss_err}, "
+                            f"gradients {g})")
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"{tag}: a loss is not finite: {losses}")
+    if not moved:
+        failures.append(f"{tag}: the trained leaves did not change, or are not finite")
+    if not same_base:
+        failures.append(f"{tag}: the pipeline's own weights changed")
+    if counts != expected:
+        failures.append(f"{tag}: launch counts {counts} differ from the topology's {expected}")
+    return rep
+
+
+def _meshtrain_rank(rank: int, port: int, out: Path) -> int:
+    """One of the two ranks (``--meshtrain-rank``): both drive cuda:0 over
+    gloo. Per family, one full-width pipeline and its cases of
+    ``MT_CASES``. Writes ``meshtrain{rank}.json``, then fails if a case
+    did not hold."""
+    import torch
+
+    from t2v_torch.models.modelscope_unet import count_kernel_sites
+    from t2v_torch.models.videocrafter_unet import count_vc_kernel_sites
+    from t2v_torch.parallel import multihost
+
+    multihost.initialize(f"127.0.0.1:{port}", MT_RANKS, rank)
+    torch.cuda.set_device(multihost.rank_device())
+    report, failures = {}, []
+    try:
+        for family in PAR_FAMILIES:
+            t0 = time.perf_counter()
+            pipe = _par_pipeline(family)
+            per_call = (count_kernel_sites(pipe.unet_cfg, TRAIN_T, LAT, LAT)
+                        if family == "modelscope" else
+                        count_vc_kernel_sites(pipe.cfg, TRAIN_T, LAT, LAT))
+            print(f"meshtrain rank {rank}: {family} pipeline in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            for i, case in enumerate(c for c in MT_CASES if c[1] == family):
+                report[case[0]] = _mt_case(rank, pipe, per_call, case, 51 + i, failures)
+            del pipe
+            _release()
+    finally:
+        multihost.shutdown()
+    (out / f"meshtrain{rank}.json").write_text(json.dumps(report))
+    if failures:
+        _fail("meshtrain: " + "; ".join(failures))
+    return 0
+
+
+def _write_clip_dir(root: Path, n: int = 2) -> Path:
+    """A WebVid directory of ``n`` seeded TRAIN_T-frame 256x256 clips
+    (``videos/<id>.mp4`` through cv2's mp4v writer, and ``meta.csv``)."""
+    import csv
+
+    import cv2
+    import numpy as np
+
+    (root / "videos").mkdir(parents=True)
+    clips = ((_synthetic_clips(61, n) + 1.0) * 127.5).astype(np.uint8)
+    with open(root / "meta.csv", "w", newline="") as f:
+        rows = csv.writer(f)
+        rows.writerow(["videoid", "name", "page_dir"])
+        for i, clip in enumerate(clips):
+            writer = cv2.VideoWriter(str(root / "videos" / f"{i}.mp4"),
+                                     cv2.VideoWriter_fourcc(*"mp4v"), 8, (PX, PX))
+            for frame in clip:
+                writer.write(np.ascontiguousarray(frame[..., ::-1]))
+            writer.release()
+            rows.writerow([str(i), _CAPTIONS[i % len(_CAPTIONS)], ""])
+    return root
+
+
+def _cli_rank(out: Path, argv: list, save: bool) -> int:
+    """One process of the trainer CLI (``--cli-args``, under torchrun or
+    alone): ``t2v_torch.cli.train.main(argv)`` with the plain versions
+    barred from CUDA tensors and the launch counters set to 0 before it;
+    writes ``rank{RANK}.json`` under ``out`` (the exit code, the launches,
+    every step's loss) and, from rank 0, the first step's gradients, whole,
+    to ``grads.pt``. The CLI's random pipeline gets its zero leaves
+    perturbed, as every meshtrain case's does (with a zero output layer
+    the first loss would not depend on the data). ``save=False`` skips the
+    CLI's writes (the one-rank reference run)."""
+    import torch
+
+    from t2v_torch.cli import train as cli
+    from t2v_torch.io import train_state as io_state
+    from t2v_torch.parallel import train as T
+    from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
+
+    rank = int(os.environ.get("RANK", "0"))
+    if not save:
+        io_state.save_train_state = io_state.save_weights = lambda *a, **k: None
+    init = VideoCrafterPipeline.random_init
+
+    def perturbed(*args, **kwargs):  # as _par_pipeline: no zero output layer
+        pipe = init(*args, **kwargs)
+        _perturb_zero_leaves(pipe)
+        return pipe
+
+    losses, loss_and_grads = [], T.TrainStep.loss_and_grads
+
+    def recorded(self, state, *args, **kwargs):
+        loss, grads = loss_and_grads(self, state, *args, **kwargs)
+        losses.append(float(loss))
+        if len(losses) == 1:  # every rank joins the gather; rank 0 writes
+            names = [n for n, _ in T.tree_items(state.params)]
+            full = io_state.full_tensors(state, dict(zip(names, grads)))
+            if full is not None:
+                torch.save({k: v.cpu() for k, v in full.items()}, out / "grads.pt")
+            del full
+        return loss, grads
+
+    VideoCrafterPipeline.random_init = staticmethod(perturbed)
+    T.TrainStep.loss_and_grads = recorded
+    _reset_counters()
+    with _no_plain_on_cuda():
+        code = cli.main(argv)
+    (out / f"rank{rank}.json").write_text(json.dumps(
+        {"code": code, "launches": _read_counters(), "losses": losses}))
+    return code
+
+
+def _mt_cli(root: Path) -> dict:
+    """``t2v_torch.cli.train --model-type VideoCrafter --sp 2`` under
+    ``python -m torch.distributed.run --standalone --nproc-per-node 2`` on
+    seeded clips: MT_CLI_STEPS steps saved at the end, then ``--resume`` to
+    one more; and once in one process without ``--sp`` for one step, its
+    writes skipped: the reference. Each process runs the CLI's ``main``
+    through this script (``--cli-args``, ``_cli_rank``), which bars the
+    plain versions and counts launches. Checks each rank's launches
+    against the topology's (the sp-local training steps plus the VAE
+    encoder's attention on the rank's frames), that both ranks report the
+    same losses, the first step's loss and gradients against the
+    reference's within MT_LOSS_SHARE and MT_GRAD_SHARE (a rank that
+    encoded the wrong samples or frames moves them: ``_mt_case``'s share
+    faults), that rank 0 wrote each ``step_N/``
+    once and that the first loads through ``VideoCrafterPipeline.
+    from_model_dir`` with every UNet weight at the full config's shape.
+    Returns the launches per call and rank."""
+    import shutil
+
+    import torch
+
+    from t2v_torch.core.config import VideoCrafterUNetConfig
+    from t2v_torch.core.dtypes import Policy
+    from t2v_torch.io.train_state import load_weights
+    from t2v_torch.models.videocrafter_unet import VideoCrafterUNet, count_vc_kernel_sites
+    from t2v_torch.pipeline.videocrafter import VideoCrafterPipeline
+
+    data, out = _write_clip_dir(root / "clips"), root / "cli_out"
+    argv = ["--model-type", "VideoCrafter", "--data-dir", str(data), "--out", str(out),
+            "--batch-size", "1", "--frames", str(TRAIN_T), "--resolution", str(PX),
+            "--log-every", "1", "--save-every", str(MT_CLI_STEPS)]
+    me = str(Path(__file__).resolve())
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", str(MT_RANKS), me]
+    calls = {  # label: (command, its arguments, ranks, steps it runs, frames a rank encodes)
+        "reference": ([sys.executable, me], ["--steps", "1"], 1, 1, TRAIN_T),
+        "train": (torchrun, ["--sp", "2", "--steps", str(MT_CLI_STEPS)], MT_RANKS,
+                  MT_CLI_STEPS, TRAIN_T // 2),
+        "resume": (torchrun, ["--sp", "2", "--steps", str(MT_CLI_STEPS + 1), "--resume"],
+                   MT_RANKS, 1, TRAIN_T // 2),
+    }
+    per_call = count_vc_kernel_sites(VideoCrafterUNetConfig(), TRAIN_T, LAT, LAT)
+    seconds, launches, losses = {}, {}, {}
+    for label, (cmd, extra, ranks, steps, frames) in calls.items():
+        where = root / f"cli_{label}"
+        where.mkdir()
+        args = ["--cli-args", json.dumps(argv + extra), "--out", str(where)]
+        if label == "reference":
+            args.append("--cli-no-save")
+        t0 = time.perf_counter()
+        _run_procs(f"torchrun trainer CLI ({label})", [cmd + args], [root / f"cli_{label}.log"],
+                   keep=("step ", "saved", "resumed", "mesh", "Error"))
+        seconds[label] = time.perf_counter() - t0
+        expected = {k: 0 for k in _counters()}
+        expected.update({k: steps * v for k, v in per_call.items()})
+        expected["flash_bwd_dkv"] = expected["flash_bwd_dq"] = steps * per_call["flash_attention"]
+        expected["flash_attention"] += steps * -(-frames // 8)  # the VAE encoder's attention
+        reports = [json.loads((where / f"rank{r}.json").read_text()) for r in range(ranks)]
+        for r, rep in enumerate(reports):
+            launches[f"meshtrain_cli_{label}_rank{r}"] = rep["launches"]
+            if rep["code"] != 0 or len(rep["losses"]) != steps:
+                _fail(f"trainer CLI ({label}) rank {r}: exit code {rep['code']}, "
+                      f"{len(rep['losses'])} steps, expected {steps}")
+            if rep["launches"] != expected:
+                _fail(f"trainer CLI ({label}) rank {r}: launch counts {rep['launches']} differ "
+                      f"from the topology's {expected}")
+            if not all(math.isclose(a, b, rel_tol=1e-6) for a, b in
+                       zip(rep["losses"], reports[0]["losses"])):
+                _fail(f"trainer CLI ({label}): the ranks report different losses "
+                      f"{[x['losses'] for x in reports]}")
+        losses[label] = reports[0]["losses"]
+    loss_err = abs(losses["train"][0] - losses["reference"][0]) / abs(losses["reference"][0])
+    g = _mt_distance(torch.load(root / "cli_train" / "grads.pt", map_location="cuda"),
+                     torch.load(root / "cli_reference" / "grads.pt"))
+    print(f"trainer CLI (VideoCrafter, sp = 2): first step against one process's on the same "
+          f"clips and seed: loss {losses['train'][0]:.5f} vs {losses['reference'][0]:.5f} "
+          f"({loss_err:.2e}, limit {MT_LOSS_SHARE}); gradients of {g['leaves']} leaves: worst "
+          f"{g['worst']:.4f} ({g['leaf']}), median {g['median']:.4f}, limit {MT_GRAD_SHARE}; "
+          f"losses {losses['train']} then {losses['resume']} after --resume; launches a rank "
+          f"{launches['meshtrain_cli_train_rank0']}", flush=True)
+    if not (loss_err <= MT_LOSS_SHARE and g["worst"] <= MT_GRAD_SHARE):
+        _fail(f"trainer CLI: the sp = 2 run's first step is not one process's (loss "
+              f"{loss_err}, gradients {g})")
+    _release()
+    log = (root / "cli_resume.log").read_text()
+    if f"at step {MT_CLI_STEPS}" not in log:
+        _fail(f"torchrun trainer CLI: --resume did not continue at step {MT_CLI_STEPS}")
+    saved = sorted(p.name for p in out.iterdir())
+    want_saved = [f"step_{MT_CLI_STEPS}", f"step_{MT_CLI_STEPS + 1}"]
+    if saved != want_saved:
+        _fail(f"torchrun trainer CLI: wrote {saved}, expected {want_saved}")
+    for name in want_saved:
+        step = json.loads((out / name / "train_state.json").read_text())["step"]
+        if step != int(name.split("_")[1]):
+            _fail(f"torchrun trainer CLI: {name} holds a state at step {step}")
+    # a random-init pipeline has no vocab file to save beside its weights:
+    # the repo's test vocab, under the published name in the parent
+    # directory, where the loaders look
+    shutil.copy(VOCAB, out / "bpe_simple_vocab_16e6.txt.gz")
+    _, sds = load_weights(str(out / want_saved[0]), only=("unet",))
+    with torch.device("meta"):
+        full_shapes = {k: v.shape for k, v in VideoCrafterUNet(VideoCrafterUNetConfig())
+                       .state_dict().items()}
+    if {k: v.shape for k, v in sds["unet"].items()} != full_shapes:
+        _fail("torchrun trainer CLI: the saved UNet is not at the full config's shapes")
+    t0 = time.perf_counter()
+    pipe = VideoCrafterPipeline.from_model_dir(str(out / want_saved[0]), Policy.bf16(),
+                                               device="cuda")
+    loaded = {k: v.shape for k, v in pipe.unet.state_dict().items()}
+    seconds["load"] = time.perf_counter() - t0
+    if loaded != full_shapes:
+        _fail("torchrun trainer CLI: the loaded pipeline's UNet is not at the full shapes")
+    print(f"torchrun trainer CLI (VideoCrafter, sp = 2): {MT_CLI_STEPS} steps "
+          f"{seconds['train']:.1f} s, --resume to step {MT_CLI_STEPS + 1} "
+          f"{seconds['resume']:.1f} s (each with both ranks' pipeline builds and rank 0's "
+          f"writes), the one-process reference step {seconds['reference']:.1f} s; wrote "
+          f"{saved} once; {want_saved[0]} loads through from_model_dir in "
+          f"{seconds['load']:.1f} s, {len(loaded)} UNet tensors at the full shapes", flush=True)
+    del pipe
+    _release()
+    return launches
+
+
+def check_legacy() -> dict:
+    """The legacy blocks at UNetSD's first level (320 channels, a 32x32
+    map): the attention block (5 heads of 64 over 1,024 tokens and 77
+    prepended context rows of 1,024: the flash kernel at S = 1,101) in bf16
+    on the card, its flash call held against ``flash_attention_plain`` on
+    the call's own inputs; the residual block (320 -> 640 channels,
+    downsampling, the scale-shift embedding) in bf16 on the card against
+    float32 on the CPU, within SMALL_RATIO of bf16 on the CPU. Returns the
+    attention block's launches."""
+    import copy
+
+    import torch
+
+    from t2v_torch.kernels import attention as attention_mod
+    from t2v_torch.kernels.flash_attention import flash_attention_plain
+    from t2v_torch.models import legacy as Lg
+    from t2v_torch.pipeline.pipeline import init_weights
+
+    g = torch.Generator().manual_seed(41)
+    rnd = lambda *shape: torch.randn(shape, generator=g)
+
+    def on(module, dtype, device):
+        return copy.deepcopy(module).to(device=device, dtype=dtype).eval()
+
+    attn = Lg.LegacyAttentionBlock(320, 1024, num_heads=5)
+    res = Lg.LegacyResidualBlock(320, 1280, 640, use_scale_shift_norm=True, mode="downsample")
+    for i, block in enumerate((attn, res)):
+        init_weights(block, 41 + i)
+        with torch.no_grad():  # the zero-initialised closing layers and the biases
+            for p in block.parameters():
+                p.add_(0.02 * rnd(*p.shape))
+    x, ctx, e = rnd(2, LAT, LAT, 320), rnd(2, 77, 1024), rnd(2, 1280)
+
+    calls, flash = [], attention_mod.flash_attention
+
+    def recorded(q, k, v, scale=None):
+        out = flash(q, k, v, scale)
+        calls.append((q, k, v, scale, out))
+        return out
+
+    attention_mod.flash_attention = recorded
+    _reset_counters()
+    try:
+        with torch.no_grad(), _no_plain_on_cuda():
+            y = on(attn, torch.bfloat16, "cuda")(x.cuda().bfloat16(), ctx.cuda().bfloat16())
+        torch.cuda.synchronize()
+    finally:
+        attention_mod.flash_attention = flash
+    launches = _read_counters()
+    if launches["flash_attention"] != 1 or len(calls) != 1 or sum(launches.values()) != 1:
+        _fail(f"legacy attention block: launches {launches}, {len(calls)} flash calls; "
+              "expected one flash launch")
+    q, k, v, scale, out = calls[0]
+    err = (out.float() - flash_attention_plain(q, k, v, scale).float()).abs().max().item()
+    limit = TOL_SHARE * max(1.0, out.float().abs().max().item())
+    with torch.no_grad():
+        want = on(attn, torch.float32, "cpu")(x, ctx)
+    rel = ((y.float().cpu() - want).norm() / want.norm()).item()
+    print(f"legacy attention block (2, {LAT}, {LAT}, 320), 5 heads of 64, 77 context rows: "
+          f"flash call {tuple(q.shape)} x {tuple(k.shape)}: max_abs_err={err:.3e} tol="
+          f"{limit:.3e} {'ok' if err <= limit else 'MISMATCH'}; the block in bf16 on the card "
+          f"{rel:.3e} relative RMS from float32 on the CPU", flush=True)
+    if not err <= limit:
+        _fail(f"legacy attention block: the flash call is {err} from its plain version")
+
+    with torch.no_grad():
+        want = on(res, torch.float32, "cpu")(x, e)
+        cpu16 = on(res, torch.bfloat16, "cpu")(x.bfloat16(), e.bfloat16()).float()
+        got = on(res, torch.bfloat16, "cuda")(x.cuda().bfloat16(), e.cuda().bfloat16())
+    rel = lambda a: ((a.float().cpu() - want).norm() / want.norm()).item()
+    card, floor = rel(got), rel(cpu16)
+    ok = card <= SMALL_RATIO * floor
+    print(f"legacy residual block (2, {LAT}, {LAT}, 320) -> (2, {LAT // 2}, {LAT // 2}, 640): "
+          f"bf16 on the card {card:.3e} relative RMS from float32 on the CPU, bf16 on the CPU "
+          f"{floor:.3e}, limit {SMALL_RATIO * floor:.3e} {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if not ok:
+        _fail(f"legacy residual block: {card} from float32, above {SMALL_RATIO} x {floor}")
+    _release()
+    return launches
+
+
+def drive_meshtrain() -> dict:
+    """Training over a mesh at full width (bf16, batch x 16 frames at
+    256x256, seeded weights with the zero leaves perturbed): the legacy
+    blocks in this process; then two ranks sharing the card over gloo
+    (``--meshtrain-rank``) run ``MT_CASES`` (ModelScope LoRA rank 4 at
+    dp = 2, tp = 2 and sp = 2; ModelScope full with EMA 0.9999 at dp = 2;
+    VideoCrafter full at tp = 2 and sp = 2), each held against the one-rank
+    step with its planted faults caught (``_mt_case``); then the trainer CLI
+    under torchrun (``_mt_cli``). Returns the launches per path and rank."""
+    import shutil
+    import tempfile
+
+    t_group = time.perf_counter()
+    launches = {"legacy_attention": check_legacy()}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mt_", dir=REPO))
+    try:
+        t0 = time.perf_counter()
+        port = _free_port()
+        _run_procs("meshtrain ranks", [[sys.executable, str(Path(__file__).resolve()),
+                                        "--meshtrain-rank", str(r), "--port", str(port),
+                                        "--out", str(root)] for r in range(MT_RANKS)],
+                   [root / f"meshtrain{r}.log" for r in range(MT_RANKS)],
+                   keep=("meshtrain", "backend", "Error"))
+        t_ranks = time.perf_counter() - t0
+        reports = [json.loads((root / f"meshtrain{r}.json").read_text())
+                   for r in range(MT_RANKS)]
+        for label, *_ in MT_CASES:
+            for r, rep in enumerate(reports):
+                launches[f"meshtrain_{label}_rank{r}"] = rep[label]["launches"]
+        print(f"meshtrain ranks: {t_ranks:.1f} s", flush=True)
+        launches.update(_mt_cli(root))
+        print(f"meshtrain group: {time.perf_counter() - t_group:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     phases = ("kernels", "small", "modelscope", "generate", "modes", "videocrafter",
-              "vcgenerate", "vcbranches", "parallel", "train")
+              "vcgenerate", "vcbranches", "parallel", "train", "meshtrain")
     parser.add_argument("--only", help="run the build and these groups of phases (comma-"
                         f"separated, of {', '.join(phases)}, or vcddpm, which the default run "
                         "leaves out); prints no result line")
-    # one rank of the parallel group, started by drive_parallel
+    # one rank of the parallel group, started by drive_parallel, or of the
+    # meshtrain group, started by drive_meshtrain
     parser.add_argument("--parallel-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--meshtrain-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--port", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--out", help=argparse.SUPPRESS)
+    # one process of the trainer CLI, started by _mt_cli: its arguments as
+    # a JSON list
+    parser.add_argument("--cli-args", help=argparse.SUPPRESS)
+    parser.add_argument("--cli-no-save", action="store_true", help=argparse.SUPPRESS)
     ns = parser.parse_args()
     only = ns.only
     if only is not None:
@@ -3935,12 +4674,18 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if ns.parallel_rank is not None:
         return _parallel_rank(ns.parallel_rank, ns.port, Path(ns.out))
+    if ns.meshtrain_rank is not None:
+        return _meshtrain_rank(ns.meshtrain_rank, ns.port, Path(ns.out))
+    if ns.cli_args is not None:
+        return _cli_rank(Path(ns.out), json.loads(ns.cli_args), not ns.cli_no_save)
     t_start = time.perf_counter()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
     build_kernels()
     records, launches = [], {}
+    if run("kernels", "meshtrain"):
+        check_mesh_gradients()
     if run("kernels"):
         records = check_kernels()
         print(f"kernel checks done at {time.perf_counter() - t_start:.0f} s", flush=True)
@@ -3987,6 +4732,9 @@ def main() -> int:
     if run("parallel"):
         launches.update(drive_parallel())
         print(f"parallel done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    if run("meshtrain"):
+        launches.update(drive_meshtrain())
+        print(f"meshtrain done at {time.perf_counter() - t_start:.0f} s", flush=True)
     if only is not None and "vcddpm" in only:
         launches.update(drive_vcddpm())
         print(f"vcddpm done at {time.perf_counter() - t_start:.0f} s", flush=True)

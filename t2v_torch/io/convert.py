@@ -295,6 +295,21 @@ def from_jax_clip(params: Tree, cfg: CLIPTextConfig, layout: str = "open_clip") 
     return sd
 
 
+def from_jax_legacy(params: Tree) -> dict[str, np.ndarray]:
+    """A JAX ``LegacyResidualBlock`` or ``LegacyAttentionBlock`` tree ->
+    the state dict of the port's block of the same configuration
+    (``models/legacy.py``, whose modules carry the JAX names)."""
+    sd: dict[str, np.ndarray] = {}
+    for name, t in _unwrap(params).items():
+        if "GroupNorm_0" in t:
+            _gn32(sd, name, t)
+        elif np.ndim(t["kernel"]) == 4:
+            _conv2d(sd, name, t)
+        else:
+            _linear(sd, name, t)
+    return sd
+
+
 def lora_from_jax(tree: Mapping[str, Mapping[str, Any]], device="cpu") -> dict:
     """A JAX LoRA tree (``{name: {"lora_A" (in, r), "lora_B" (r, out)[,
     "scale", "diag"]}}``, numpy leaves) -> the port's: the same names and

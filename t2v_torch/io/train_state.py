@@ -6,6 +6,14 @@ with a clear message. The port's counterpart of the JAX package's
 ``io/orbax_io.py`` train-state functions; weights are stored as safetensors.
 ``save_weights`` writes the module weights a generation run loads
 (``ModelScopePipeline.from_native``), ``load_weights`` reads them back.
+
+A state trained over a mesh holds each rank's tp pieces and knows its mesh
+and layout (``parallel/train.py``); on disk it is always the full tensors.
+Every rank calls ``save_train_state``: the ranks of rank 0's tp group gather
+the pieces and rank 0 writes. ``restore_train_state`` reads the full
+tensors on every rank and cuts each to the rank's piece, AdamW's moments
+and the EMA shadow too. ``full_tensors`` gathers a tree of the state (its
+parameters or its EMA shadow) for a caller that writes weights.
 """
 
 from __future__ import annotations
@@ -16,28 +24,52 @@ import os
 import shutil
 
 import torch
+import torch.distributed as dist
 
 from t2v_torch.io.safetensors_io import load_torch, save_torch
+from t2v_torch.parallel.sharding import gather_tensor, shard_tensor
 from t2v_torch.parallel.train import TrainState, tree_items
 
 FORMAT_VERSION = 1
-_MOMENTS = ("exp_avg", "exp_avg_sq", "step")
+
+
+def full_tensors(state: TrainState, tree: dict) -> dict | None:
+    """The full tensors of ``tree`` (``state.params`` or
+    ``state.ema_params``, or a moment of each), flat by ``tree_items``
+    name, on rank 0, None on the other ranks of the state's mesh. Every
+    rank calls it: the ranks of rank 0's tp group join the gather of the
+    split leaves."""
+    mesh = state.mesh
+    if mesh is None:
+        return dict(tree_items(tree))
+    if mesh.dp.index or mesh.sp.index:
+        return None
+    full = {name: gather_tensor(t.detach(), name, state.layout, mesh.tp)
+            for name, t in tree_items(tree)}
+    return full if dist.get_rank() == 0 else None
+
+
+def _moment(state: TrainState, key: str) -> dict:
+    """{leaf name: AdamW's ``key`` of the leaf} of the leaves stepped."""
+    opt = state.opt_state.state
+    return {name: torch.as_tensor(opt[p][key]) for name, p in tree_items(state.params)
+            if key in opt.get(p, {})}
 
 
 def save_train_state(out_dir: str, state: TrainState, mode: dict | None = None) -> str:
-    """Full training state (params + optimizer state + step + EMA)."""
+    """Full training state (params + optimizer state + step + EMA), the
+    full tensors of a state cut over a mesh. Every rank of the state's mesh
+    calls it; rank 0 writes."""
     out_dir = os.path.abspath(out_dir)
+    trees = {"params": full_tensors(state, state.params),
+             "opt/exp_avg": full_tensors(state, _moment(state, "exp_avg")),
+             "opt/exp_avg_sq": full_tensors(state, _moment(state, "exp_avg_sq")),
+             "opt/step": _moment(state, "step"),  # a count, the same on every rank
+             "ema": full_tensors(state, state.ema_params or {})}
+    if trees["params"] is None:
+        return out_dir
+    tensors = {f"{prefix}/{name}": t for prefix, tree in trees.items() for name, t in tree.items()}
     os.makedirs(out_dir, exist_ok=True)
-    tensors = {}
-    for name, p in tree_items(state.params):
-        tensors[f"params/{name}"] = p
-        moments = state.opt_state.state.get(p, {})
-        for key in _MOMENTS:
-            if key in moments:
-                tensors[f"opt/{key}/{name}"] = torch.as_tensor(moments[key])
-    if state.ema_params is not None:
-        for name, e in tree_items(state.ema_params):
-            tensors[f"ema/{name}"] = e
     save_torch(os.path.join(out_dir, "train_state.safetensors"), tensors)
     meta = {"format_version": FORMAT_VERSION, "step": int(state.step)}
     if mode:
@@ -60,7 +92,8 @@ def has_train_state(out_dir: str) -> bool:
 @torch.no_grad()
 def restore_train_state(out_dir: str, template_state: TrainState) -> TrainState:
     """Restore into the structure, dtypes and devices of ``template_state``
-    (made by ``init_train_state`` on the same configuration), in place."""
+    (made by ``init_train_state`` on the same configuration), in place.
+    Each full tensor is cut to this rank's piece of the template's mesh."""
     out_dir = os.path.abspath(out_dir)
     tensors, _ = load_torch(os.path.join(out_dir, "train_state.safetensors"))
     with open(os.path.join(out_dir, "train_state.json")) as f:
@@ -68,25 +101,28 @@ def restore_train_state(out_dir: str, template_state: TrainState) -> TrainState:
     if meta["format_version"] > FORMAT_VERSION:
         raise ValueError(f"train state format {meta['format_version']} is newer than this "
                          f"build ({FORMAT_VERSION})")
+    mesh, layout = template_state.mesh, template_state.layout
+    tp = mesh.tp if mesh is not None else None
 
-    def fill(prefix: str, tree) -> None:
-        for name, p in tree_items(tree):
-            src = tensors.get(f"{prefix}/{name}")
-            if src is None or src.shape != p.shape:
-                raise KeyError(f"{out_dir}: no {prefix}/{name} of shape {tuple(p.shape)}")
-            p.copy_(src.to(p.device, p.dtype))
+    def piece(key: str, name: str, like: torch.Tensor) -> torch.Tensor:
+        src = tensors.get(key)
+        if src is not None:
+            src = shard_tensor(src, name, layout, tp)
+        if src is None or src.shape != like.shape:
+            raise KeyError(f"{out_dir}: no {key} of shape {tuple(like.shape)}")
+        return src.to(like.device, like.dtype, copy=True)
 
-    fill("params", template_state.params)
-    if template_state.ema_params is not None:
-        fill("ema", template_state.ema_params)
+    for prefix, tree in (("params", template_state.params), ("ema", template_state.ema_params)):
+        for name, p in tree_items(tree or {}):
+            p.copy_(piece(f"{prefix}/{name}", name, p))
     opt = template_state.opt_state
     for name, p in tree_items(template_state.params):
         if f"opt/exp_avg/{name}" not in tensors:
             continue  # saved before its first step
         opt.state[p] = {
             "step": tensors[f"opt/step/{name}"].to(torch.float32),
-            "exp_avg": tensors[f"opt/exp_avg/{name}"].to(p.device, p.dtype),
-            "exp_avg_sq": tensors[f"opt/exp_avg_sq/{name}"].to(p.device, p.dtype),
+            "exp_avg": piece(f"opt/exp_avg/{name}", name, p),
+            "exp_avg_sq": piece(f"opt/exp_avg_sq/{name}", name, p),
         }
     template_state.step = int(meta["step"])
     return template_state

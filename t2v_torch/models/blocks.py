@@ -66,7 +66,8 @@ def group_norm(x, weight, bias, groups: int, eps: float, silu: bool = False, sp=
         mean = x32.mean(dim=(1, 3), keepdim=True)
         var = (x32 * x32).mean(dim=(1, 3), keepdim=True) - mean * mean
     else:
-        sums = sp.all_reduce_sum(torch.stack([x32.sum(dim=(1, 3)), (x32 * x32).sum(dim=(1, 3))]))
+        sums = sp.all_reduce_sum(torch.stack([x32.sum(dim=(1, 3)), (x32 * x32).sum(dim=(1, 3))]),
+                                 backward="sum")
         sums = sums[:, :, None, :, None] / (x32.shape[1] * x32.shape[3] * sp.size)
         mean, var = sums[0], sums[1] - sums[0] * sums[0]
     y = (x32 - mean) * torch.rsqrt(var.clamp_min(0.0) + eps)
@@ -125,10 +126,11 @@ def conv1x1_as_linear(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
 def row_parallel(linear: nn.Linear, x: torch.Tensor, tp=None) -> torch.Tensor:
     """``linear(x)``; with ``tp`` (a mesh axis over which ``linear``'s input
     features are split) the rank's partial product is summed over it in
-    float32 and the bias added once, after the sum."""
+    float32 and the bias added once, after the sum; every tp rank goes on
+    with the same sum, so its gradient passes to each partial as it is."""
     if tp is None:
         return linear(x)
-    y = tp.all_reduce_sum(F.linear(x, linear.weight))
+    y = tp.all_reduce_sum(F.linear(x, linear.weight), backward="identity")
     if linear.bias is not None:
         y = y + linear.bias.float()
     return y.to(x.dtype)
@@ -171,6 +173,9 @@ class CrossAttention(nn.Module):
     tp = None  # the mesh axis splitting the heads (parallel/sharding.py)
 
     def forward(self, x, context=None):
+        if self.tp is not None:  # column-parallel inputs: their gradient sums over tp
+            x = self.tp.copy_in(x)
+            context = None if context is None else self.tp.copy_in(context)
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         b, n, inner = q.shape
@@ -210,6 +215,8 @@ class GEGLUFeedForward(nn.Module):
     tp = None  # the mesh axis splitting the hidden width (parallel/sharding.py)
 
     def forward(self, x):
+        if self.tp is not None:  # the column-parallel input: its gradient sums over tp
+            x = self.tp.copy_in(x)
         return row_parallel(self.net[2], self.net[0](x), self.tp)
 
 

@@ -172,6 +172,8 @@ class TemporalCrossAttention(nn.Module):
         return y4.reshape(x.shape)
 
     def _forward(self, x, frame_split, mask):
+        if self.tp is not None:  # the column-parallel input: its gradient sums over tp
+            x = self.tp.copy_in(x)
         q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         shape = q.shape
         if frame_split:
@@ -182,6 +184,8 @@ class TemporalCrossAttention(nn.Module):
         if self.use_relative_position:
             k2 = self.relative_position_k(t, t).to(q.dtype).contiguous()
             v2 = self.relative_position_v(t, t).to(q.dtype).contiguous()
+            if self.tp is not None:  # whole tables used by this rank's heads only
+                k2, v2 = self.tp.copy_in(k2), self.tp.copy_in(v2)
         else:
             k2 = v2 = q.new_zeros((t, t, self.dim_head))
         out = relpos_attention(q, k, v, k2, v2, self.heads, t, self.dim_head ** -0.5, mask=mask)

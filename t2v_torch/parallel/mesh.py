@@ -9,10 +9,33 @@ and the collectives the sharded paths call explicitly:
 
   * ``all_reduce_sum``: float32 sums (tp's row-parallel products, the
     GroupNorm statistics of frames split over sp);
+  * ``copy_in``: the identity, at the input of tp's column-parallel
+    products;
   * ``all_gather``: the pieces of a tensor along one axis, in index order
     (frames gathered under sp);
+  * ``all_reduce_buckets``: float32 sums of many tensors in a few large
+    calls (the training step's gradients over dp and sp);
   * ``ProcessMesh.gather_samples``: the finished latents of every dp index
     to rank 0.
+
+The first three are ``torch.autograd.Function``s whose backward is the one
+the training step needs (Megatron's f and g for tp). Each rank
+differentiates its own term of the global loss, and the backward must give
+it the gradient of the whole loss with respect to its own tensors:
+
+  * ``all_reduce_sum(x, backward="identity")``: the sum is replicated and
+    every rank goes on with the same function of it (tp's row-parallel
+    output, whose loss every tp rank computes alike), so the gradient of
+    the sum is already the gradient of each partial (g);
+  * ``all_reduce_sum(x, backward="sum")``: every rank's own loss term
+    depends on the sum (sp's GroupNorm sums, each rank normalising its own
+    frames), so a partial's gradient is the sum of every rank's;
+  * ``copy_in(x)``: x is replicated and each rank uses it for its own
+    slice of a product, so its gradient is the sum over the axis (f);
+  * ``all_gather(x, dim)``: every rank computes on all the pieces and
+    keeps its own part of the result, so a piece's gradient is the sum of
+    every rank's gradient of that piece (a reduce-scatter, done as an
+    all-reduce and a slice, which gloo has).
 
 Every collective takes the tensors where they lie. An NCCL group works on
 the cards; a gloo group (ranks sharing a card, or CPU ranks) stages CUDA
@@ -29,6 +52,8 @@ import torch
 import torch.distributed as dist
 
 AXES = ("dp", "sp", "tp")
+# the most bytes of float32 that one call of ``Axis.all_reduce_buckets`` sums
+BUCKET_BYTES = 256 << 20
 
 
 @dataclass(frozen=True)
@@ -39,25 +64,104 @@ class Axis:
     index: int
     group: object  # torch.distributed ProcessGroup
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+    def all_reduce_sum(self, t: torch.Tensor, backward: str) -> torch.Tensor:
         """The elementwise sum of ``t`` over the axis, as a new float32
-        tensor."""
-        buf = t.float().clone()
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
-        return buf
+        tensor. ``backward`` is "identity" where every rank goes on with
+        the same function of the sum, "sum" where each rank's own loss
+        term depends on it (the module docstring)."""
+        if backward not in ("identity", "sum"):
+            raise ValueError(f"all_reduce_sum: backward is 'identity' or 'sum', not {backward!r}")
+        return _AllReduceSum.apply(t, self.group, backward == "sum")
+
+    def copy_in(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` itself, whose gradient is summed over the axis: a
+        replicated input of a product split over the axis."""
+        return _CopyIn.apply(t, self.group)
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``t`` (all of one shape), concatenated along
-        ``dim`` in axis order."""
-        src = t.contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.size)]
-        dist.all_gather(parts, src, group=self.group)
-        return torch.cat(parts, dim=dim)
+        ``dim`` in axis order; its gradient is every rank's gradient of
+        this rank's piece, summed."""
+        return _AllGather.apply(t, self.group, self.size, self.index, dim)
+
+    def all_reduce_buckets(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The elementwise sums over the axis of ``tensors`` (of any
+        dtypes and shapes, the same list on every rank), each returned in
+        its own dtype. The tensors are packed into float32 buckets of at
+        most ``BUCKET_BYTES`` (a tensor larger than that is one bucket),
+        one all-reduce a bucket, and summed in float32."""
+        out: list[torch.Tensor | None] = [None] * len(tensors)
+        bucket: list[int] = []
+        filled = 0
+
+        def flush():
+            if not bucket:
+                return
+            flat = torch.cat([tensors[i].detach().reshape(-1).float() for i in bucket])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+            for i, piece in zip(bucket, flat.split([tensors[i].numel() for i in bucket])):
+                out[i] = piece.view(tensors[i].shape).to(tensors[i].dtype)
+            bucket.clear()
+
+        for i, t in enumerate(tensors):
+            if bucket and filled + 4 * t.numel() > BUCKET_BYTES:
+                flush()
+                filled = 0
+            bucket.append(i)
+            filled += 4 * t.numel()
+        flush()
+        return out
 
     def shard(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's equal piece of ``t`` along ``dim``."""
         n = t.shape[dim] // self.size
         return t.narrow(dim, self.index * n, n)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, sum_grad: bool):
+        ctx.group, ctx.sum_grad, ctx.dtype = group, sum_grad, t.dtype
+        buf = t.float().clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sum_grad:
+            g = g.float().clone()
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g.to(ctx.dtype), None, None
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf = g.float().clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ctx.group)
+        return buf.to(g.dtype), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, size: int, index: int, dim: int):
+        ctx.group, ctx.index, ctx.dim, ctx.n = group, index, dim, t.shape[dim]
+        src = t.contiguous()
+        parts = [torch.empty_like(src) for _ in range(size)]
+        dist.all_gather(parts, src, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        buf = g.to(torch.float32, copy=True).contiguous()  # never the incoming gradient
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ctx.group)
+        piece = buf.narrow(ctx.dim, ctx.index * ctx.n, ctx.n).to(g.dtype).contiguous()
+        return piece, None, None, None, None
 
 
 class ProcessMesh:

@@ -35,6 +35,11 @@ slot (None when whole), one that mixes frames an ``sp`` slot, and each
 calls its collectives itself (``models/blocks.py``: ``row_parallel``,
 ``frames_gathered``, ``group_norm(sp=)``). This module only finds the
 slots, fills them and slices the weights.
+
+Training keeps a rank's tp pieces in its train state: ``tp_layout`` names
+the parameters that tp splits (of the modules ``parallel_unet`` splits),
+``shard_params`` cuts a state dict to this rank's pieces and
+``gather_params`` puts the pieces back together, the exact inverse.
 """
 
 from __future__ import annotations
@@ -74,6 +79,57 @@ def _local(t: torch.Tensor, name: str, axis: Axis, halves: bool) -> torch.Tensor
     return axis.shard(t, dim).contiguous()
 
 
+def tp_layout(unet: nn.Module, tp: int) -> dict[str, bool]:
+    """{parameter name: packed GEGLU halves?} of every parameter of
+    ``unet`` that a tp-way split cuts: those of the modules that
+    ``parallel_unet`` splits, on their ``shard_dim``."""
+    layout = {}
+    if tp <= 1:
+        return layout
+    for prefix, mod in _tp_modules(unet, tp):
+        ff = isinstance(mod, B.GEGLUFeedForward)
+        for pname, p in mod.named_parameters():
+            if shard_dim(f"{prefix}.{pname}", p.dim()) is not None:
+                layout[f"{prefix}.{pname}"] = ff and pname.startswith("net.0.proj")
+    return layout
+
+
+def shard_tensor(t: torch.Tensor, name: str, layout: dict[str, bool],
+                 axis: Axis | None) -> torch.Tensor:
+    """This tp rank's piece of the full tensor ``t`` of parameter
+    ``name`` (``t`` itself when the layout leaves it whole)."""
+    if axis is None or name not in layout:
+        return t
+    return _local(t, name, axis, layout[name])
+
+
+@torch.no_grad()
+def gather_tensor(piece: torch.Tensor, name: str, layout: dict[str, bool],
+                  axis: Axis | None) -> torch.Tensor:
+    """The full tensor of parameter ``name`` from every tp rank's
+    ``piece``: the inverse of ``shard_tensor``. Collective over ``axis``
+    for a split parameter."""
+    if axis is None or name not in layout:
+        return piece
+    dim = shard_dim(name, piece.dim())
+    parts = axis.all_gather(piece, dim).chunk(axis.size, dim)
+    if layout[name]:  # each piece is (value_t | gate_t): the values first, then the gates
+        halves = [part.chunk(2, dim) for part in parts]
+        parts = [h[0] for h in halves] + [h[1] for h in halves]
+    return torch.cat(parts, dim=dim)
+
+
+def shard_params(params: dict, layout: dict[str, bool], axis: Axis | None) -> dict:
+    """This tp rank's pieces of a flat ``name -> tensor`` dict."""
+    return {k: shard_tensor(v, k, layout, axis) for k, v in params.items()}
+
+
+def gather_params(params: dict, layout: dict[str, bool], axis: Axis | None) -> dict:
+    """The full tensors of a dict of this rank's pieces; every tp rank of
+    the axis must call it, with the same names in the same order."""
+    return {k: gather_tensor(v, k, layout, axis) for k, v in params.items()}
+
+
 def _tp_modules(unet: nn.Module, tp: int):
     """The modules with a ``tp`` slot that tp splits: a GEGLU feed-forward
     whose width divides by tp, an attention whose heads do."""
@@ -90,14 +146,18 @@ def _sp_modules(unet: nn.Module):
 
 
 @contextlib.contextmanager
-def parallel_unet(unet: nn.Module, tp: Axis | None = None, sp: Axis | None = None):
+def parallel_unet(unet: nn.Module, tp: Axis | None = None, sp: Axis | None = None,
+                  weights: bool = True):
     """Run ``unet`` tensor-parallel over ``tp`` and frame-parallel over
     ``sp`` (either may be None) inside the block: the split modules hold
     their rank's slices and local head counts, the frame-mixing ones their
     sp axis. The UNet then takes this rank's frames (F / sp of them) and
     returns its frames of the output, whole over tp. Everything is restored
     on exit. The weights are sliced in place: while the block is open the
-    module (and a pipeline holding it) must serve no other request."""
+    module (and a pipeline holding it) must serve no other request.
+    ``weights=False`` leaves the module's weights whole, for a caller that
+    hands every parameter's piece in through ``functional_call`` (the
+    train step, whose state holds the pieces that receive the gradients)."""
     saved_params: list[tuple[nn.Module, str, nn.Parameter]] = []
     saved_attrs: list[tuple[nn.Module, str, object]] = []
 
@@ -109,7 +169,7 @@ def parallel_unet(unet: nn.Module, tp: Axis | None = None, sp: Axis | None = Non
         if tp is not None and tp.size > 1:
             for prefix, mod in _tp_modules(unet, tp.size):
                 ff = isinstance(mod, B.GEGLUFeedForward)
-                for pname, p in list(mod.named_parameters()):
+                for pname, p in list(mod.named_parameters()) if weights else ():
                     local = _local(p.data, f"{prefix}.{pname}", tp,
                                    halves=ff and pname.startswith("net.0.proj"))
                     if local is p.data:

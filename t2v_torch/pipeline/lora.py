@@ -142,6 +142,7 @@ def apply_lora(
     lora: Mapping[str, Mapping[str, torch.Tensor]],
     module_index: ModuleIndex,
     alpha: float = 1.0,
+    local=None,
 ) -> dict[str, torch.Tensor]:
     """Functionally merge a (trainable) LoRA tree into a state dict: a new
     dict whose adapted weights are ``W + delta.T`` (cast to W's dtype) and
@@ -149,12 +150,17 @@ def apply_lora(
     are not written to; gradients reach only A and B (hand it detached base
     weights, as ``make_lora_train_step`` does). Optional per-module
     ``scale`` / ``diag`` entries act as the reference wrapper's runtime
-    scale and rank selector."""
+    scale and rank selector. ``local(weight name, delta.T)``, when given,
+    cuts the full (out, in) delta to the piece of the weight that
+    ``params`` holds (a tp rank's piece)."""
     new = dict(params)
     for name, ab in lora.items():
         pname, _ = module_index[name]
         w = params[pname]
-        new[pname] = w + lora_delta(ab, alpha).T.to(w.dtype)
+        delta = lora_delta(ab, alpha).T
+        if local is not None:
+            delta = local(pname, delta)
+        new[pname] = w + delta.to(w.dtype)
     return new
 
 

@@ -149,9 +149,9 @@ def write_vc_dir(pipe: VideoCrafterPipeline, out: Path, fps: bool = False) -> Pa
     return out
 
 
-def write_clip_dir(root: Path, n_frames: int = 12, size=(40, 48)) -> Path:
-    """A one-clip WebVid directory (``videos/1.mp4`` and ``meta.csv``) for
-    the trainer; needs ``cv2``."""
+def write_clip_dir(root: Path, n_frames: int = 12, size=(40, 48), clips: int = 1) -> Path:
+    """A WebVid directory of ``clips`` seeded clips (``videos/1.mp4``, ...
+    and ``meta.csv``) for the trainer; needs ``cv2``."""
     import csv
 
     import cv2
@@ -160,13 +160,15 @@ def write_clip_dir(root: Path, n_frames: int = 12, size=(40, 48)) -> Path:
     (root / "videos").mkdir(parents=True)
     rng = np.random.default_rng(0)
     h, w = size
-    writer = cv2.VideoWriter(str(root / "videos" / "1.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 8,
-                             (w, h))
-    for _ in range(n_frames):
-        writer.write(rng.integers(0, 255, (h, w, 3), dtype=np.uint8))
-    writer.release()
+    for i in range(1, clips + 1):
+        writer = cv2.VideoWriter(str(root / "videos" / f"{i}.mp4"),
+                                 cv2.VideoWriter_fourcc(*"mp4v"), 8, (w, h))
+        for _ in range(n_frames):
+            writer.write(rng.integers(0, 255, (h, w, 3), dtype=np.uint8))
+        writer.release()
     with open(root / "meta.csv", "w", newline="") as f:
         wr = csv.writer(f)
         wr.writerow(["videoid", "name", "page_dir"])
-        wr.writerow(["1", "a cat", ""])
+        for i in range(1, clips + 1):
+            wr.writerow([str(i), "a cat" if i == 1 else f"a cat, clip {i}", ""])
     return root

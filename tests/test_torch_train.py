@@ -413,9 +413,10 @@ def test_cli_fine_tunes_a_model_dir_and_saves_a_loadable_one(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    pytest.param(["--sp", "2"], "--sp/--tp: training on a mesh is not ported yet .the "
-                 "mesh-training slice", id="argv0---sp/--tp"),
-    pytest.param(["--tp", "2"], "--sp/--tp: training on a mesh", id="argv1---sp/--tp"),
+    pytest.param(["--tp", "2"], "--sp 1 --tp 2: training over a mesh needs a process group",
+                 id="argv0---sp/--tp"),
+    pytest.param(["--sp", "3"], "--sp 3: the 16 frames of a clip .--frames. do not divide by "
+                 "it", id="argv1---sp/--tp"),
     (["--model-type", "VideoCrafter", "--model-dir", "x", "--vc-ckpt", "y"],
      "--vc-ckpt: a VideoCrafter checkpoint, taken with --model-type VideoCrafter and without "
      "--model-dir"),
