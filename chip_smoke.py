@@ -101,7 +101,9 @@ and prints no result line):
     gate); two ranks this script starts (``--parallel-rank``)
     sharing the card over gloo: dp = 2 frames bit-identical to the serial
     ones, tp = 2 and sp = 2 UNet calls against the one-rank call on the
-    same inputs, every request's launches a rank against the topology's;
+    same inputs, every request's launches a rank against the topology's
+    and its collectives (``parallel/audit.py``) against the port's model:
+    one line per mesh axis and kind, calls and bytes;
     then ``python -m torch.distributed.run --standalone --nproc-per-node 2
     -m t2v_torch.cli.generate --dp-shards 2`` on a directory saved from
     the serial pipeline (rank 0 writes both batches once, bit-identical);
@@ -119,8 +121,11 @@ and prints no result line):
     inputs and draw, two planted faults that gradient gate must catch and
     two (a rank on the wrong share) that it or the loss gate must, the
     trained leaves moved and the pipeline's not, launches a rank against
-    the topology's, seconds a step, peak memory and bytes all-reduced a
-    step; then the trainer CLI's ``main`` (``t2v_torch.cli.train
+    the topology's, seconds a step, peak memory, and the collectives of
+    the steps against the port's model (one line per axis and kind, calls
+    and bytes; all-reduced and all-gathered bytes a step), with a planted
+    per-call weight gather that passes the numeric gates and that the
+    audit must catch; then the trainer CLI's ``main`` (``t2v_torch.cli.train
     --model-type VideoCrafter --sp 2``) under ``python -m
     torch.distributed.run --standalone --nproc-per-node 2`` for two steps
     and ``--resume`` to a third, the plain versions barred and each rank's
@@ -3592,19 +3597,103 @@ def _par_per_call(pipe, family: str) -> dict:
     return count_vc_kernel_sites(pipe.cfg, VC_T, LAT, LAT)
 
 
+def _audit_lines(tag: str, inv) -> dict:
+    """Prints one line per mesh axis and kind of the inventory ``inv``
+    (calls and bytes, and their split by phase); returns {"axis kind":
+    [calls, bytes]}."""
+    rows: dict = {}
+    for (axis, kind, phase), (calls, nbytes) in sorted(inv.tally().items()):
+        row = rows.setdefault(f"{axis} {kind}", [0, 0, []])
+        row[0] += calls
+        row[1] += nbytes
+        row[2].append(f"{phase} {calls} / {nbytes:,} B")
+    for key, (calls, nbytes, phases) in rows.items():
+        print(f"{tag}: audit {key}: {calls} calls, {nbytes:,} B ({'; '.join(phases)})",
+              flush=True)
+    if not rows:
+        print(f"{tag}: audit: no collectives", flush=True)
+    return {key: row[:2] for key, row in rows.items()}
+
+
+def _audit_faults(label, inv, census, unet, tp: int, sp: int, calls: int, frames: int) -> list:
+    """What of the forward and backward collectives of ``inv`` (``calls``
+    UNet calls at tp x sp) does not follow the port's model: each site that
+    the tp and sp hooks installed called once a call, the collectives
+    exactly those the sites give (``audit.site_census``), every sp gather
+    carrying all ``frames``, and no all-gather of a full parameter outside
+    the save phase."""
+    from t2v_torch.parallel import audit
+
+    faults = []
+    sites = audit.installed_sites(unet, tp, sp)
+    called = {k: v for k, v in census.site_calls.items() if k != "column-parallel"}
+    if called != {k: calls * n for k, n in sites.items()}:
+        faults.append(f"{label}: sites called {called}, the model's {dict(sites)} x {calls}")
+    got = inv.select(phases=("forward", "backward")).tally()
+    if got != census.expected:
+        faults.append(f"{label}: collectives {got}, the sites give {census.expected}")
+    short = [op.shapes for op in inv.select(axis="sp", kind="all-gather").ops
+             if any(dims[1] != frames for dims in op.shapes)]
+    if short:
+        faults.append(f"{label}: sp gathers without all {frames} frames: {short[:3]}")
+    try:
+        audit.assert_no_param_gather(inv, audit.param_full_shapes(unet))
+    except AssertionError as e:
+        faults.append(f"{label}: {e}")
+    return faults
+
+
+def _par_audit(label, pipe, args, inv, census, calls: int, shards: dict) -> dict:
+    """Holds a request's collectives to the port's model and prints them:
+    without a process group none; under one rank 0's seed broadcast, the
+    UNet calls' (``_audit_faults``), the sp gather of the finished frames
+    at sp and the dp gather of the samples, nothing else (so a dp request
+    issues none inside its loop). Returns ``_audit_lines``'s."""
+    import torch.distributed as dist
+
+    from t2v_torch.parallel.audit import Inventory
+
+    if not dist.is_initialized():
+        if inv.ops:
+            _fail(f"{label}: collectives without a process group: {inv.summary()}")
+        return {}
+    report = _audit_lines(label, inv)
+    tp, sp = shards.get("tp_shards", 1), shards.get("sp_shards", 1)
+    seed, *loop, gather = inv.ops
+    faults = []
+    if (seed.kind, seed.axis, gather.kind, gather.axis) != ("broadcast", "default",
+                                                            "all-gather", "dp"):
+        faults.append(f"{label}: the request does not open with the seed broadcast and close "
+                      f"with the sample gather: {seed}, {gather}")
+    if sp > 1:
+        final = loop.pop()
+        if (final.kind, final.axis, final.shapes[0][1]) != ("all-gather", "sp", args.frames):
+            faults.append(f"{label}: not the gather of the finished frames: {final}")
+    faults += _audit_faults(label, Inventory(loop), census, pipe.unet, tp, sp, calls,
+                            args.frames)
+    if faults:
+        _fail("; ".join(faults))
+    print(f"{label}: audit: the port's communication model holds ({len(inv.ops)} collectives, "
+          f"{calls} UNet calls)", flush=True)
+    return report
+
+
 def _par_run(label, pipe, args, outdir: Path, per_call: dict, calls: int, decodes: int,
              **shards):
     """``run`` writing PNG frames under ``outdir``, the plain versions
-    barred from CUDA tensors; fails unless the launches equal ``calls``
-    UNet calls plus ``decodes`` decode calls. Returns (launches, seconds)."""
+    barred from CUDA tensors and its collectives recorded; fails unless the
+    launches equal ``calls`` UNet calls plus ``decodes`` decode calls and
+    the collectives follow the port's model (``_par_audit``). Returns
+    (launches, seconds, the audit's lines)."""
     import torch
 
     from t2v_torch.core.config import T2VOutputArgs
+    from t2v_torch.parallel import audit
     from t2v_torch.pipeline.run import run
 
     _reset_counters()
     t0 = time.perf_counter()
-    with _no_plain_on_cuda():
+    with _no_plain_on_cuda(), audit.recording() as inv, audit.site_census(pipe.unet) as census:
         run(args, T2VOutputArgs(skip_video_creation=True), pipe=pipe, outdir=str(outdir),
             callback_interval=None, keep_in_vram=False, **shards)
     torch.cuda.synchronize()
@@ -3613,7 +3702,7 @@ def _par_run(label, pipe, args, outdir: Path, per_call: dict, calls: int, decode
     expected = _expected(per_call, calls, decodes)
     if counts != expected:
         _fail(f"{label}: launch counts {counts} differ from the topology's {expected}")
-    return counts, seconds
+    return counts, seconds, _par_audit(label, pipe, args, inv, census, calls, shards)
 
 
 def _png_frames(outdir: Path) -> list:
@@ -3744,10 +3833,10 @@ def _parallel_rank(rank: int, port: int, out: Path) -> int:
             per_call = _par_per_call(pipe, family)
             steps = STEPS if family == "modelscope" else VC_STEPS
             rep = report[family] = {}
-            counts, sec = _par_run(f"{family} dp=2 rank {rank}", pipe,
-                                   _par_request(family, steps, 2), out / f"{family}_dp", per_call,
-                                   steps, 2 if rank == 0 else 0, dp_shards=2)
-            rep["dp"] = {"launches": counts, "seconds": sec}
+            counts, sec, traffic = _par_run(f"{family} dp=2 rank {rank}", pipe,
+                                            _par_request(family, steps, 2), out / f"{family}_dp",
+                                            per_call, steps, 2 if rank == 0 else 0, dp_shards=2)
+            rep["dp"] = {"launches": counts, "seconds": sec, "audit": traffic}
             args4 = _par_request(family, PAR_STEPS)
             res4, calls = _par_captured(pipe, lambda: pipe.infer(args4), PAR_CALLS)
             frames4 = res4.frames
@@ -3764,10 +3853,10 @@ def _parallel_rank(rank: int, port: int, out: Path) -> int:
                         got = mesh.sp.all_gather(got, 1)
                     errs.append(_par_call_check(f"rank {rank} {family} {kind}=2 UNet call {i}",
                                                 got, want))
-                counts, sec = _par_run(f"{family} {kind}=2 rank {rank}", pipe, args4,
-                                       out / f"{family}_{kind}", per_call, PAR_STEPS,
-                                       1 if rank == 0 else 0, **{f"{kind}_shards": 2})
-                rep[kind] = {"calls": errs, "launches": counts, "seconds": sec}
+                counts, sec, traffic = _par_run(f"{family} {kind}=2 rank {rank}", pipe, args4,
+                                                out / f"{family}_{kind}", per_call, PAR_STEPS,
+                                                1 if rank == 0 else 0, **{f"{kind}_shards": 2})
+                rep[kind] = {"calls": errs, "launches": counts, "seconds": sec, "audit": traffic}
                 if rank == 0:
                     rep[kind]["frames_vs_serial"] = _frame_distance(  # PNGs are BGR
                         _png_frames(out / f"{family}_{kind}")[0], frames4[..., ::-1])
@@ -3800,7 +3889,7 @@ def _free_port() -> int:
 
 
 def _run_procs(label: str, cmds: list, logs: list,
-               keep=("UNet call", "backend", "gloo", "Error")) -> None:
+               keep=("UNet call", "backend", "gloo", "audit", "Error")) -> None:
     """Start ``cmds`` together, each writing to its log, and wait for all
     of them; fails (after stopping the others) if one does not end with 0
     within PAR_TIMEOUT, printing the end of its log; a process that fails
@@ -3873,11 +3962,11 @@ def drive_parallel() -> dict:
             per_call = _par_per_call(pipe, family)
             steps = STEPS if family == "modelscope" else VC_STEPS
             args = _par_request(family, steps, 2)
-            _, sec_serial = _par_run(f"{family} serial", pipe, args, root / f"{family}_serial",
-                                     per_call, 2 * steps, 2)
+            _, sec_serial, _ = _par_run(f"{family} serial", pipe, args,
+                                        root / f"{family}_serial", per_call, 2 * steps, 2)
             torch.cuda.reset_peak_memory_stats()
             batch_calls = (0, steps // 2, steps - 1)
-            (counts, sec), calls = _par_captured(pipe, lambda: _par_run(
+            (counts, sec, _), calls = _par_captured(pipe, lambda: _par_run(
                 f"{family} batched dp=2", pipe, args, root / f"{family}_batched", per_call, steps,
                 2, dp_shards=2), batch_calls)
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -4023,34 +4112,30 @@ MT_SHARE_FAULTS = {"ms_lora_dp": "both dp ranks train on the first sample",
 MT_CLI_STEPS = 2
 
 
-class _Traffic:
-    """Bytes handed to ``all_reduce`` and received by ``all_gather`` while
-    ``on``."""
-
-    def __init__(self):
-        self.reduced = self.gathered = 0
-        self.on = True
+# the case in which one row-parallel site is planted to gather its full
+# weight at every call (``_gather_fault``): the numeric gates pass it, the
+# audit must not
+MT_GATHER_FAULT = "vc_full_tp"
 
 
 @contextlib.contextmanager
-def _counting_traffic(traffic: _Traffic):
-    import torch.distributed as dist
+def _gather_fault(unet, layout: dict, tp):
+    """While the block is open, the first row-parallel attention of
+    ``unet`` also gathers its full out-projection weight from its tp pieces
+    (``sharding.gather_tensor``) at every call, and drops it."""
+    from t2v_torch.parallel.sharding import gather_tensor
 
-    all_reduce, all_gather = dist.all_reduce, dist.all_gather
+    name = next(n for n in layout if n.endswith("to_out.0.weight"))
+    site = unet.get_submodule(name.removesuffix(".to_out.0.weight"))
 
-    def counted_reduce(tensor, *args, **kwargs):
-        traffic.reduced += traffic.on * tensor.numel() * tensor.element_size()
-        return all_reduce(tensor, *args, **kwargs)
+    def gather_and_drop(mod, args):
+        gather_tensor(mod.to_out[0].weight, name, layout, tp)
 
-    def counted_gather(parts, tensor, *args, **kwargs):
-        traffic.gathered += traffic.on * len(parts) * tensor.numel() * tensor.element_size()
-        return all_gather(parts, tensor, *args, **kwargs)
-
-    dist.all_reduce, dist.all_gather = counted_reduce, counted_gather
+    handle = site.register_forward_pre_hook(gather_and_drop)
     try:
         yield
     finally:
-        dist.all_reduce, dist.all_gather = all_reduce, all_gather
+        handle.remove()
 
 
 def _mt_inputs(pipe, family: str, batch: int, seed: int):
@@ -4137,8 +4222,9 @@ def _mt_case(rank: int, pipe, per_call: dict, case: tuple, seed: int, failures: 
     import torch
     import torch.distributed as dist
 
+    from t2v_torch.parallel import audit
     from t2v_torch.parallel import train as T
-    from t2v_torch.parallel.mesh import Axis, get_mesh
+    from t2v_torch.parallel.mesh import AXES, Axis, get_mesh
     from t2v_torch.parallel.sharding import gather_params
 
     label, family, kind, axis, ema, batch = case
@@ -4164,9 +4250,9 @@ def _mt_case(rank: int, pipe, per_call: dict, case: tuple, seed: int, failures: 
     before = _fingerprint(T.tree_leaves(state.params))
     ema_name = names[0] if ema is not None else None
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    traffic, times, losses, rep = _Traffic(), [], [], {}
+    times, losses, rep = [], [], {}
     _reset_counters()
-    with _no_plain_on_cuda(), _counting_traffic(traffic):
+    with _no_plain_on_cuda(), audit.recording() as inv, audit.site_census(pipe.unet) as census:
         for i in range(MT_STEPS):
             if ema_name is not None:
                 ema_old = state.ema_params[ema_name].clone()
@@ -4181,12 +4267,10 @@ def _mt_case(rank: int, pipe, per_call: dict, case: tuple, seed: int, failures: 
             times.append(time.perf_counter() - t0)
             losses.append(float(loss))
             if i == 0:  # the first step's gradients, whole, against the one-rank step's
-                traffic.on = False
-                full = gather_params(dict(zip(names, first)), layout, mesh.tp)
+                full = gather_params(dict(zip(names, first)), layout, mesh.tp)  # save phase
                 if rank == 0:
                     rep["grads"] = _mt_distance(full, ref[1])
                 del full, first
-                traffic.on = True
             if ema_name is not None:
                 want = (ema_old * ema + state.params[ema_name].detach().float() * (1.0 - ema))
                 if not torch.allclose(state.ema_params[ema_name], want, rtol=1e-5, atol=1e-7):
@@ -4197,15 +4281,33 @@ def _mt_case(rank: int, pipe, per_call: dict, case: tuple, seed: int, failures: 
     after = _fingerprint(T.tree_leaves(state.params))
     moved = bool(torch.isfinite(after).all()) and not torch.equal(before, after)
     same_base = torch.equal(base_before, _fingerprint(pipe.unet.parameters()))
+    tag = f"meshtrain {label} rank {rank}"
+    # the model's gradient sums: one float32 pass of every trainable leaf of
+    # the rank (and the loss) over each of sp and dp above 1; under tp the
+    # leaves a tp slice feeds
+    numel = sum(p.numel() for p in T.tree_leaves(state.params))
+    summed = sum(p.numel() for n, p in T.tree_items(state.params) if n in step.tp_summed)
+    want_sums = {ax: MT_STEPS * (4 * numel + 4) for ax in ("sp", "dp") if mesh.shape[ax] > 1}
+    if mesh.tp.size > 1 and summed:
+        want_sums["tp"] = MT_STEPS * 4 * summed
     del state
     _release()
+    sums = inv.select(phases=("gradient sum",))
+    got_sums = {ax: sum(op.bytes for op in sums.ops if op.axis == ax) for ax in AXES}
+    audit_faults = _audit_faults(tag, inv, census, pipe.unet, mesh.tp.size, mesh.sp.size,
+                                 MT_STEPS, TRAIN_T)
+    if {ax: b for ax, b in got_sums.items() if b} != want_sums:
+        audit_faults.append(f"{tag}: gradient sums {got_sums} B, the model's {want_sums}")
+    failures.extend(audit_faults)
+    step_ops = inv.select(phases=("forward", "backward", "gradient sum"))
 
     expected = {k: 0 for k in _counters()}
     expected.update({k: MT_STEPS * v for k, v in per_call.items()})
     expected["flash_bwd_dkv"] = expected["flash_bwd_dq"] = MT_STEPS * per_call["flash_attention"]
     rep.update(seconds=times, losses=losses, peak_gib=peak, launches=counts,
-               reduced_bytes_per_step=traffic.reduced / MT_STEPS,
-               gathered_bytes_per_step=traffic.gathered / MT_STEPS)
+               audit=_audit_lines(tag, step_ops),
+               reduced_bytes_per_step=step_ops.total_bytes["all-reduce"] / MT_STEPS,
+               gathered_bytes_per_step=step_ops.total_bytes["all-gather"] / MT_STEPS)
     if rank == 0:
         loss_err = abs(losses[0] - ref[0]) / abs(ref[0])
         rep.update(loss_ref=ref[0], loss_err=loss_err)
@@ -4227,6 +4329,25 @@ def _mt_case(rank: int, pipe, per_call: dict, case: tuple, seed: int, failures: 
         del state, step, grads, fault
         _release()
 
+    if label == MT_GATHER_FAULT:
+        state, step, _ = _mt_step(pipe, kind, mesh, ema, lora)
+        with _no_plain_on_cuda(), audit.recording() as planted, \
+                _gather_fault(pipe.unet, layout, mesh.tp):
+            wrong, grads = step.loss_and_grads(state, local, None, draw)
+        fault = gather_params(dict(zip(names, grads)), layout, mesh.tp)
+        try:
+            audit.assert_no_param_gather(planted, audit.param_full_shapes(pipe.unet))
+            caught = None
+        except AssertionError as e:
+            caught = str(e)
+        rep["gather_fault"] = {"loss": float(wrong), "caught": caught,
+                               "traffic": _audit_lines(f"{tag} planted gather", planted)}
+        if rank == 0:
+            rep["gather_fault"].update(loss_err=abs(float(wrong) - ref[0]) / abs(ref[0]),
+                                       grads=_mt_distance(fault, ref[1]))
+        del state, step, grads, fault
+        _release()
+
     if label in MT_SHARE_FAULTS:
         state, step, _ = _mt_step(pipe, kind, mesh, ema, lora)
         n, f = batch // mesh.dp.size, TRAIN_T // mesh.sp.size
@@ -4240,7 +4361,6 @@ def _mt_case(rank: int, pipe, per_call: dict, case: tuple, seed: int, failures: 
         del state, step, grads, fault
         _release()
 
-    tag = f"meshtrain {label} rank {rank}"
     print(f"{tag}: {batch} x {TRAIN_T} frames ({local['latents'].shape[0]} x "
           f"{local['latents'].shape[1]} on this rank); losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; seconds a step "
@@ -4272,9 +4392,21 @@ def _mt_case(rank: int, pipe, per_call: dict, case: tuple, seed: int, failures: 
             if not f["worst"] > MT_GRAD_SHARE:
                 failures.append(f"{tag}: the gradient gate passes the planted fault "
                                 f"({f['worst']})")
+        if "gather_fault" in rep:
+            f = rep["gather_fault"]
+            passes = f["loss_err"] <= MT_LOSS_SHARE and f["grads"]["worst"] <= MT_GRAD_SHARE
+            print(f"{tag}: planted fault (a row-parallel site gathers its full weight at every "
+                  f"call): loss {f['loss_err']:.2e} from the one-rank step's, gradients worst "
+                  f"{f['grads']['worst']:.4f}: the numeric gates "
+                  f"{'pass it' if passes else 'CATCH it'}; the audit "
+                  f"{'catches it: ' + f['caught'] if f['caught'] else 'MISSES it'}", flush=True)
+            if not passes:
+                failures.append(f"{tag}: the planted weight gather changed the step ({f})")
         if not (loss_err <= MT_LOSS_SHARE and g["worst"] <= MT_GRAD_SHARE):
             failures.append(f"{tag}: the mesh step is not the one-rank step (loss {loss_err}, "
                             f"gradients {g})")
+    if "gather_fault" in rep and not rep["gather_fault"]["caught"]:
+        failures.append(f"{tag}: the audit passes a per-call weight gather")
     if not all(math.isfinite(x) for x in losses):
         failures.append(f"{tag}: a loss is not finite: {losses}")
     if not moved:

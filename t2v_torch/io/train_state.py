@@ -13,7 +13,10 @@ Every rank calls ``save_train_state``: the ranks of rank 0's tp group gather
 the pieces and rank 0 writes. ``restore_train_state`` reads the full
 tensors on every rank and cuts each to the rank's piece, AdamW's moments
 and the EMA shadow too. ``full_tensors`` gathers a tree of the state (its
-parameters or its EMA shadow) for a caller that writes weights.
+parameters or its EMA shadow) for a caller that writes weights. Its
+gathers, the one place where full parameters are gathered by design, are
+recorded in the save phase (``parallel/audit.py``); a restore issues no
+collective.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from t2v_torch.io.safetensors_io import load_torch, save_torch
+from t2v_torch.parallel import audit
 from t2v_torch.parallel.sharding import gather_tensor, shard_tensor
 from t2v_torch.parallel.train import TrainState, tree_items
 
@@ -44,8 +48,9 @@ def full_tensors(state: TrainState, tree: dict) -> dict | None:
         return dict(tree_items(tree))
     if mesh.dp.index or mesh.sp.index:
         return None
-    full = {name: gather_tensor(t.detach(), name, state.layout, mesh.tp)
-            for name, t in tree_items(tree)}
+    with audit.phase(audit.SAVE):
+        full = {name: gather_tensor(t.detach(), name, state.layout, mesh.tp)
+                for name, t in tree_items(tree)}
     return full if dist.get_rank() == 0 else None
 
 

@@ -18,6 +18,10 @@ and the collectives the sharded paths call explicitly:
   * ``ProcessMesh.gather_samples``: the finished latents of every dp index
     to rank 0.
 
+Every collective records itself while ``parallel/audit.py`` records (its
+kind, this axis's name, dtype, shapes and bytes, and the phase), and pays
+one test of a flag while it does not.
+
 The first three are ``torch.autograd.Function``s whose backward is the one
 the training step needs (Megatron's f and g for tp). Each rank
 differentiates its own term of the global loss, and the backward must give
@@ -51,6 +55,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from t2v_torch.parallel import audit
+
 AXES = ("dp", "sp", "tp")
 # the most bytes of float32 that one call of ``Axis.all_reduce_buckets`` sums
 BUCKET_BYTES = 256 << 20
@@ -63,6 +69,7 @@ class Axis:
     size: int
     index: int
     group: object  # torch.distributed ProcessGroup
+    name: str      # "dp", "sp" or "tp": the axis its collectives are recorded under
 
     def all_reduce_sum(self, t: torch.Tensor, backward: str) -> torch.Tensor:
         """The elementwise sum of ``t`` over the axis, as a new float32
@@ -71,18 +78,18 @@ class Axis:
         term depends on it (the module docstring)."""
         if backward not in ("identity", "sum"):
             raise ValueError(f"all_reduce_sum: backward is 'identity' or 'sum', not {backward!r}")
-        return _AllReduceSum.apply(t, self.group, backward == "sum")
+        return _AllReduceSum.apply(t, self, backward == "sum")
 
     def copy_in(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` itself, whose gradient is summed over the axis: a
         replicated input of a product split over the axis."""
-        return _CopyIn.apply(t, self.group)
+        return _CopyIn.apply(t, self)
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``t`` (all of one shape), concatenated along
         ``dim`` in axis order; its gradient is every rank's gradient of
         this rank's piece, summed."""
-        return _AllGather.apply(t, self.group, self.size, self.index, dim)
+        return _AllGather.apply(t, self, dim)
 
     def all_reduce_buckets(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
         """The elementwise sums over the axis of ``tensors`` (of any
@@ -98,7 +105,7 @@ class Axis:
             if not bucket:
                 return
             flat = torch.cat([tensors[i].detach().reshape(-1).float() for i in bucket])
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+            _all_reduce(flat, self)
             for i, piece in zip(bucket, flat.split([tensors[i].numel() for i in bucket])):
                 out[i] = piece.view(tensors[i].shape).to(tensors[i].dtype)
             bucket.clear()
@@ -118,50 +125,60 @@ class Axis:
         return t.narrow(dim, self.index * n, n)
 
 
+def _all_reduce(buf: torch.Tensor, axis: Axis, phase: str | None = None) -> None:
+    """Sum ``buf`` over ``axis`` in place."""
+    if audit.recorders:
+        audit.record("all-reduce", axis.name, buf, phase)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=axis.group)
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group, sum_grad: bool):
-        ctx.group, ctx.sum_grad, ctx.dtype = group, sum_grad, t.dtype
+    def forward(ctx, t, axis: Axis, sum_grad: bool):
+        ctx.axis, ctx.sum_grad, ctx.dtype = axis, sum_grad, t.dtype
         buf = t.float().clone()
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        _all_reduce(buf, axis)
         return buf
 
     @staticmethod
     def backward(ctx, g):
         if ctx.sum_grad:
             g = g.float().clone()
-            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+            _all_reduce(g, ctx.axis, "backward")
         return g.to(ctx.dtype), None, None
 
 
 class _CopyIn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
+    def forward(ctx, t, axis: Axis):
+        ctx.axis = axis
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, g):
         buf = g.float().clone()
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ctx.group)
+        _all_reduce(buf, ctx.axis, "backward")
         return buf.to(g.dtype), None
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, group, size: int, index: int, dim: int):
-        ctx.group, ctx.index, ctx.dim, ctx.n = group, index, dim, t.shape[dim]
+    def forward(ctx, t, axis: Axis, dim: int):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, t.shape[dim]
         src = t.contiguous()
-        parts = [torch.empty_like(src) for _ in range(size)]
-        dist.all_gather(parts, src, group=group)
-        return torch.cat(parts, dim=dim)
+        parts = [torch.empty_like(src) for _ in range(axis.size)]
+        dist.all_gather(parts, src, group=axis.group)
+        out = torch.cat(parts, dim=dim)
+        if audit.recorders:  # the result's shape and bytes
+            audit.record("all-gather", axis.name, out)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         buf = g.to(torch.float32, copy=True).contiguous()  # never the incoming gradient
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ctx.group)
-        piece = buf.narrow(ctx.dim, ctx.index * ctx.n, ctx.n).to(g.dtype).contiguous()
-        return piece, None, None, None, None
+        _all_reduce(buf, ctx.axis, "backward")
+        piece = buf.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n).to(g.dtype).contiguous()
+        return piece, None, None
 
 
 class ProcessMesh:
@@ -191,7 +208,7 @@ class ProcessMesh:
             for ranks in members[name]:
                 group = dist.new_group(ranks)
                 if rank in ranks:
-                    self.axes[name] = Axis(self.shape[name], coords[name], group)
+                    self.axes[name] = Axis(self.shape[name], coords[name], group, name)
 
     @property
     def dp(self) -> Axis:

@@ -29,6 +29,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from t2v_torch.parallel import audit
+
 
 def process_index() -> int:
     """This process's rank in the default group (0 without one)."""
@@ -121,6 +123,8 @@ def shared_seed(seed: int) -> int:
     if process_count() == 1:
         return seed
     box = [seed]
+    if audit.recorders:  # recorded as the one int64 it carries
+        audit.record("broadcast", "default", torch.zeros(1, dtype=torch.int64))
     dist.broadcast_object_list(box, src=0)
     return int(box[0])
 

@@ -50,6 +50,7 @@ import torch
 from torch import nn
 
 from t2v_torch.models import blocks as B
+from t2v_torch.parallel import audit
 from t2v_torch.parallel.mesh import Axis
 
 COLUMN_PARALLEL = ("to_q", "to_k", "to_v", "net.0.proj")
@@ -86,7 +87,7 @@ def tp_layout(unet: nn.Module, tp: int) -> dict[str, bool]:
     layout = {}
     if tp <= 1:
         return layout
-    for prefix, mod in _tp_modules(unet, tp):
+    for prefix, mod in tp_modules(unet, tp):
         ff = isinstance(mod, B.GEGLUFeedForward)
         for pname, p in mod.named_parameters():
             if shard_dim(f"{prefix}.{pname}", p.dim()) is not None:
@@ -126,11 +127,15 @@ def shard_params(params: dict, layout: dict[str, bool], axis: Axis | None) -> di
 
 def gather_params(params: dict, layout: dict[str, bool], axis: Axis | None) -> dict:
     """The full tensors of a dict of this rank's pieces; every tp rank of
-    the axis must call it, with the same names in the same order."""
-    return {k: gather_tensor(v, k, layout, axis) for k, v in params.items()}
+    the axis must call it, with the same names in the same order. Its
+    gathers are recorded in the save phase (``parallel/audit.py``), where
+    full parameters are gathered by design; a lone ``gather_tensor``
+    records in its caller's phase."""
+    with audit.phase(audit.SAVE):
+        return {k: gather_tensor(v, k, layout, axis) for k, v in params.items()}
 
 
-def _tp_modules(unet: nn.Module, tp: int):
+def tp_modules(unet: nn.Module, tp: int):
     """The modules with a ``tp`` slot that tp splits: a GEGLU feed-forward
     whose width divides by tp, an attention whose heads do."""
     for name, mod in unet.named_modules():
@@ -140,7 +145,7 @@ def _tp_modules(unet: nn.Module, tp: int):
                 yield name, mod
 
 
-def _sp_modules(unet: nn.Module):
+def sp_modules(unet: nn.Module):
     """The modules with an ``sp`` slot: those that mix frames."""
     return [mod for mod in unet.modules() if hasattr(type(mod), "sp")]
 
@@ -167,12 +172,13 @@ def parallel_unet(unet: nn.Module, tp: Axis | None = None, sp: Axis | None = Non
 
     try:
         if tp is not None and tp.size > 1:
-            for prefix, mod in _tp_modules(unet, tp.size):
+            for prefix, mod in tp_modules(unet, tp.size):
                 ff = isinstance(mod, B.GEGLUFeedForward)
                 for pname, p in list(mod.named_parameters()) if weights else ():
-                    local = _local(p.data, f"{prefix}.{pname}", tp,
+                    data = p.data  # a new tensor object at each access
+                    local = _local(data, f"{prefix}.{pname}", tp,
                                    halves=ff and pname.startswith("net.0.proj"))
-                    if local is p.data:
+                    if local is data:
                         continue
                     owner, leaf = (mod.get_submodule(pname.rsplit(".", 1)[0]),
                                    pname.rsplit(".", 1)[1])
@@ -182,7 +188,7 @@ def parallel_unet(unet: nn.Module, tp: Axis | None = None, sp: Axis | None = Non
                     set_attr(mod, "heads", mod.heads // tp.size)
                 set_attr(mod, "tp", tp)
         if sp is not None and sp.size > 1:
-            for mod in _sp_modules(unet):
+            for mod in sp_modules(unet):
                 set_attr(mod, "sp", sp)
         yield unet
     finally:

@@ -55,6 +55,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from t2v_torch.diffusion.schedules import DiffusionSchedule
+from t2v_torch.parallel import audit
 from t2v_torch.parallel.sharding import parallel_unet, shard_params, shard_tensor
 
 Optimizer = Callable[[list[torch.Tensor]], torch.optim.Optimizer]
@@ -225,14 +226,15 @@ class TrainStep:
         mesh = self.mesh
         if mesh is None:
             return loss, grads
-        for axis in (mesh.sp, mesh.dp):
-            if axis.size > 1:
-                grads = axis.all_reduce_buckets(grads)
-                loss = axis.all_reduce_buckets([loss])[0]
-        if mesh.tp.size > 1 and self.tp_summed:
-            picked = [i for i, (name, _) in enumerate(items) if name in self.tp_summed]
-            for i, g in zip(picked, mesh.tp.all_reduce_buckets([grads[i] for i in picked])):
-                grads[i] = g
+        with audit.phase("gradient sum"):
+            for axis in (mesh.sp, mesh.dp):
+                if axis.size > 1:
+                    grads = axis.all_reduce_buckets(grads)
+                    loss = axis.all_reduce_buckets([loss])[0]
+            if mesh.tp.size > 1 and self.tp_summed:
+                picked = [i for i, (name, _) in enumerate(items) if name in self.tp_summed]
+                for i, g in zip(picked, mesh.tp.all_reduce_buckets([grads[i] for i in picked])):
+                    grads[i] = g
         return loss, grads
 
     def apply_gradients(self, state: TrainState, grads) -> TrainState:

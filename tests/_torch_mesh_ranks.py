@@ -17,6 +17,9 @@ key), and runs, in this order:
   * the VideoCrafter sp case again with a planted fault (the sp GroupNorm
     sums' backward taken as the identity, as an all-reduce that autograd
     does not see gives), and the sp x tp case with ``remat=True``;
+  * the ModelScope full case at tp = 2 again with a planted fault that only
+    the collectives show (``gather_fault``: one row-parallel site gathers
+    its full weight at every call and drops it);
   * at sp = 2 x tp = 2, the train state of the ModelScope full case (its
     AdamW moments and EMA shadow after one step) saved and restored into a
     fresh state, and every parameter of both tiny UNets cut to its tp
@@ -25,8 +28,12 @@ key), and runs, in this order:
     ``cli.train --tiny --device cpu`` over each mesh of ``CLI_MESHES`` for
     two steps, then ``--resume`` to a third, recording every step's loss.
 
-Rank 0 saves the results to OUT_DIR/cases.pt and OUT_DIR/checks.json. The
-test module imports the builders below to make the same weights and inputs.
+Every case's step (``loss_and_grads``, the test's gathers of its gradients
+and parameters, ``apply_gradients``) and the save and the restore are
+recorded (``parallel/audit.py``), and every rank writes its inventories to
+OUT_DIR/audit{RANK}.json. Rank 0 saves the results to OUT_DIR/cases.pt and
+OUT_DIR/checks.json. The test module imports the builders below to make the
+same weights and inputs.
 """
 
 import contextlib
@@ -129,9 +136,33 @@ def _step(unet, kind, mesh, layout, *, remat=False, ema=None):
                                          mesh, alpha=ALPHA, layout=layout)
 
 
-def run_case(unet, kind, mesh, draw, **kw) -> dict | None:
+@contextlib.contextmanager
+def gather_fault(unet, layout: dict, tp):
+    """While the block is open, the first row-parallel attention of
+    ``unet`` also gathers its full out-projection weight from its tp pieces
+    (``sharding.gather_tensor``) at every call, and drops it: the
+    arithmetic is unchanged, only the traffic grows."""
+    from t2v_torch.parallel.sharding import gather_tensor
+
+    name = next(n for n in layout if n.endswith("to_out.0.weight"))
+    site = unet.get_submodule(name.removesuffix(".to_out.0.weight"))
+
+    def gather_and_drop(mod, args):
+        gather_tensor(mod.to_out[0].weight, name, layout, tp)
+
+    handle = site.register_forward_pre_hook(gather_and_drop)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def run_case(unet, kind, mesh, draw, fault: bool = False, **kw) -> dict | None:
     """The loss, the gathered gradients, and the gathered parameters after
-    the optimizer step, of one case on this rank (None outside ``mesh``)."""
+    the optimizer step, of one case on this rank (None outside ``mesh``),
+    and what it recorded (``audit``: its collectives and the census of the
+    UNet's sites, as JSON). ``fault`` plants ``gather_fault`` in the step."""
+    from t2v_torch.parallel import audit
     from t2v_torch.parallel import train as T
     from t2v_torch.parallel.sharding import gather_params, tp_layout
 
@@ -140,19 +171,25 @@ def run_case(unet, kind, mesh, draw, **kw) -> dict | None:
     layout = tp_layout(unet, mesh.tp.size)
     state, step = _step(unet, kind, mesh, layout, **kw)
     glob = {k: torch.from_numpy(v) for k, v in batch().items()}
-    loss, grads = step.loss_and_grads(state, T.local_batch(mesh, glob), None, draw)
-    names = [n for n, _ in T.tree_items(state.params)]
-    out = {"loss": float(loss), "grads": gather_params(dict(zip(names, grads)), layout, mesh.tp)}
-    step.apply_gradients(state, grads)
-    out["params"] = gather_params(dict(T.tree_items(state.params)), layout, mesh.tp)
+    with audit.recording() as inv, audit.site_census(unet) as census:
+        with gather_fault(unet, layout, mesh.tp) if fault else contextlib.nullcontext():
+            loss, grads = step.loss_and_grads(state, T.local_batch(mesh, glob), None, draw)
+        names = [n for n, _ in T.tree_items(state.params)]
+        out = {"loss": float(loss),
+               "grads": gather_params(dict(zip(names, grads)), layout, mesh.tp)}
+        step.apply_gradients(state, grads)
+        out["params"] = gather_params(dict(T.tree_items(state.params)), layout, mesh.tp)
+    out["audit"] = {"ops": inv.to_json(), "census": census.to_json()}
     return out
 
 
-def _state_round_trip(unet, mesh, draw, out: Path) -> bool:
+def _state_round_trip(unet, mesh, draw, out: Path) -> tuple[bool, dict]:
     """A sharded full state after one step with an EMA, saved (every rank
-    calls it, rank 0 writes) and restored into a fresh state: every piece
-    of it back exactly."""
+    calls it, rank 0 writes) and restored into a fresh state: whether every
+    piece of it came back exactly, and the collectives of the save and of
+    the restore (JSON)."""
     from t2v_torch.io.train_state import restore_train_state, save_train_state
+    from t2v_torch.parallel import audit
     from t2v_torch.parallel import train as T
     from t2v_torch.parallel.sharding import tp_layout
 
@@ -160,10 +197,12 @@ def _state_round_trip(unet, mesh, draw, out: Path) -> bool:
     state, step = _step(unet, "full", mesh, layout, ema=0.9)
     glob = {k: torch.from_numpy(v) for k, v in batch().items()}
     step(state, T.local_batch(mesh, glob), None, draw)
-    save_train_state(str(out), state, mode={"ema": True})
+    with audit.recording() as saved:
+        save_train_state(str(out), state, mode={"ema": True})
     torch.distributed.barrier()
     fresh, _ = _step(unet, "full", mesh, layout, ema=0.9)
-    fresh = restore_train_state(str(out), fresh)
+    with audit.recording() as restored:
+        fresh = restore_train_state(str(out), fresh)
     same = fresh.step == state.step == 1
     for (_, a), (_, b), (_, ea), (_, eb) in zip(T.tree_items(state.params),
                                                 T.tree_items(fresh.params),
@@ -172,7 +211,7 @@ def _state_round_trip(unet, mesh, draw, out: Path) -> bool:
         ma, mb = state.opt_state.state[a], fresh.opt_state.state[b]
         same &= a.shape == b.shape and torch.equal(a, b) and torch.equal(ea, eb)
         same &= all(torch.equal(ma[k], mb[k]) for k in ("exp_avg", "exp_avg_sq", "step"))
-    return bool(same)
+    return bool(same), {"save": saved.to_json(), "restore": restored.to_json()}
 
 
 def _shard_round_trip(mesh) -> dict:
@@ -206,15 +245,19 @@ def main(rank: int, world: int, port: int, out: Path) -> None:
                  for name, fam, kind, mesh in CASES}
         cases["vc_full_sp_tp_remat"] = run_case(unets["vc"], "full", meshes["sp_tp"], draw,
                                                 remat=True)
+        cases["ms_full_tp_gather_fault"] = run_case(unets["ms"], "full", meshes["tp"], draw,
+                                                    fault=True)
         sound = Axis.all_reduce_sum
         Axis.all_reduce_sum = lambda self, t, backward: sound(self, t, "identity")
         try:
             cases["vc_full_sp_fault"] = run_case(unets["vc"], "full", meshes["sp"], draw)
         finally:
             Axis.all_reduce_sum = sound
-        checks = {"state_round_trip": _state_round_trip(unets["ms"], meshes["sp_tp"], draw,
-                                                        out / "state"),
-                  "shard_round_trip": _shard_round_trip(meshes["sp_tp"]), "cli": {}}
+        same, state_audit = _state_round_trip(unets["ms"], meshes["sp_tp"], draw, out / "state")
+        checks = {"state_round_trip": same, "shard_round_trip": _shard_round_trip(meshes["sp_tp"]),
+                  "cli": {}}
+        audits = {name: case.pop("audit") for name, case in cases.items() if case is not None}
+        (out / f"audit{rank}.json").write_text(json.dumps({**audits, "state": state_audit}))
         if (out / "data").is_dir():
             for name in CLI_MESHES:
                 argv = cli_argv(out / "data", out / f"cli_{name}", name)

@@ -15,9 +15,13 @@ torch thread) and runs, in this order:
   * ``run`` on requests that would not use the two ranks
     (``REFUSED_CASES``), each of which must raise on both.
 
-Rank 0 saves the UNet outputs to OUT_DIR/unet.pt and the refusals'
-messages to OUT_DIR/refusals.json. The test module imports the builders
-below to make the same weights and inputs in its own process.
+Each UNet call and each ``run`` case is recorded (``parallel/audit.py``:
+the collectives the rank issued, and the census of the sites the tp and sp
+hooks installed), and every rank writes its inventories to
+OUT_DIR/audit{RANK}.json. Rank 0 saves the UNet outputs to OUT_DIR/unet.pt
+and the refusals' messages to OUT_DIR/refusals.json. The test module
+imports the builders below to make the same weights and inputs in its own
+process.
 """
 
 import json
@@ -101,6 +105,16 @@ def request(case_fields: dict) -> T2VArgs:
     return T2VArgs(**{**REQUEST, **case_fields})
 
 
+def recorded(unet, fn):
+    """``fn()`` and {"ops": the collectives it issued, "census": the sites
+    of ``unet`` it called}, as JSON (``parallel/audit.py``)."""
+    from t2v_torch.parallel import audit
+
+    with audit.recording() as inv, audit.site_census(unet) as census:
+        res = fn()
+    return res, {"ops": inv.to_json(), "census": census.to_json()}
+
+
 def main(rank: int, world: int, port: int, out: Path) -> None:
     from t2v_torch.parallel import multihost
     from t2v_torch.parallel.mesh import get_mesh
@@ -110,23 +124,27 @@ def main(rank: int, world: int, port: int, out: Path) -> None:
     torch.set_num_threads(1)
     multihost.initialize(f"127.0.0.1:{port}", world, rank, device="cpu")
     try:
-        outputs = {}
+        outputs, audits = {}, {}
         with torch.no_grad():
             for family in ("ms", "vc"):
                 unet = seeded_unet(family)
                 x, t, ctx = (torch.from_numpy(a) for a in unet_inputs())
                 with parallel_unet(unet, tp=get_mesh(tp=2).tp):
-                    outputs[f"{family}_tp"] = unet(x, t, ctx)
+                    outputs[f"{family}_tp"], audits[f"unet_{family}_tp"] = recorded(
+                        unet, lambda: unet(x, t, ctx))
                 sp = get_mesh(sp=2).sp
                 with parallel_unet(unet, sp=sp):
-                    outputs[f"{family}_sp"] = sp.all_gather(unet(sp.shard(x, 1), t, ctx), 1)
+                    y, audits[f"unet_{family}_sp"] = recorded(unet, lambda: unet(sp.shard(x, 1), t, ctx))
+                    outputs[f"{family}_sp"] = sp.all_gather(y, 1)
         if rank == 0:
             torch.save(outputs, out / "unet.pt")
         pipes = {}
         for case, family, kwargs, fields in RUN_CASES:
             pipe = pipes.get(family) or pipes.setdefault(family, tiny_pipeline(family))
-            run(request(fields), T2VOutputArgs(skip_video_creation=True), pipe=pipe,
-                outdir=str(out / case), callback_interval=None, keep_in_vram=False, **kwargs)
+            _, audits[case] = recorded(pipe.unet, lambda: run(
+                request(fields), T2VOutputArgs(skip_video_creation=True), pipe=pipe,
+                outdir=str(out / case), callback_interval=None, keep_in_vram=False, **kwargs))
+        (out / f"audit{rank}.json").write_text(json.dumps(audits))
         refusals = {}
         for case, family, kwargs in REFUSED_CASES:
             try:

@@ -40,9 +40,17 @@ Tolerances:
     show it: the trainer's random UNet starts with a zero output layer,
     so its first loss is the noise's mean square);
   * the shard -> gather round trip and a saved and restored sharded state:
-    exactly.
+    exactly;
+  * the collectives of every step (``parallel/audit.py``, recorded in the
+    same runs): exactly those that the sites the tp and sp hooks installed
+    give (calls and bytes), plus one float32 gradient sum an axis above 1
+    of sp and dp of 4 bytes a trainable element (and the loss's 4 bytes),
+    and, for LoRA at tp, the factors of the split sites summed over tp;
+  * a step with a planted per-call weight gather (``gather_fault``): its
+    loss and gradients are the sound step's exactly, and the audit fails it.
 """
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -73,6 +81,16 @@ from t2v_torch.core.config import ModelScopeUNetConfig, VideoCrafterUNetConfig
 from t2v_torch.io import convert, train_state
 from t2v_torch.io.safetensors_io import load_torch
 from t2v_torch.parallel import train as ttrain
+from t2v_torch.parallel.audit import (
+    SAVE,
+    Census,
+    Inventory,
+    assert_no_param_gather,
+    installed_sites,
+    param_full_shapes,
+)
+from t2v_torch.parallel.sharding import tp_layout
+from t2v_torch.pipeline import lora as tlora
 import _torch_mesh_ranks as mr
 from _torch_model_dir import write_clip_dir
 from _torch_ranks import seeded_unet
@@ -139,6 +157,13 @@ def ranks(tmp_path_factory):
         yield group
     finally:
         group.close()
+
+
+@pytest.fixture(scope="module")
+def unets():
+    """The tiny seeded UNet of each family (``seeded_unet``), built once:
+    the tests read it and do not change it."""
+    return {family: seeded_unet(family) for family in ("ms", "vc")}
 
 
 @pytest.fixture(scope="module")
@@ -225,11 +250,11 @@ def test_mesh_loss_and_gradients_match_jax(jax_steps, cases, kind):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_mesh_optimizer_step_is_the_serial_one(cases, kind):
+def test_mesh_optimizer_step_is_the_serial_one(cases, unets, kind):
     """The parameters after a mesh step (every rank's pieces updated by
     AdamW, gathered) equal a one-process AdamW step from the same start
     fed the same (gathered) gradients."""
-    unet = seeded_unet(kind[:2])
+    unet = unets[kind[:2]]
     for axis in mr.MESHES:
         case = cases[f"{kind}_{axis}"]
         if kind == "ms_lora":
@@ -325,3 +350,112 @@ def test_cli_trains_over_a_mesh_and_resumes(checks, ranks, one_process_cli, mesh
         assert json.loads((mesh_out / f"step_{step}" / "train_state.json").read_text())["step"] \
             == step
     assert train_state.latest_train_state(str(mesh_out)) == str(mesh_out / "step_3")
+
+
+def _audits(out: Path, rank: int) -> dict:
+    return json.loads((out / f"audit{rank}.json").read_text())
+
+
+def _mesh_ranks(mesh: str) -> range:
+    shape = mr.MESHES[mesh]
+    return range(shape.get("dp", 1) * shape.get("sp", 1) * shape.get("tp", 1))
+
+
+def _gradient_sums(kind: str, mesh: str, unet) -> dict:
+    """The gradient sums of one step of ``kind`` over ``mesh``, as
+    ``Inventory.tally`` reads them: for each axis above 1 of sp and dp one
+    float32 bucket of every trainable leaf of the rank (its tp piece of a
+    split parameter; a LoRA tree's factors, whole) and the loss's own; at
+    tp, the LoRA factors of the split sites."""
+    shape = {"dp": 1, "sp": 1, "tp": 1, **mr.MESHES[mesh]}
+    layout = tp_layout(unet, shape["tp"])
+    tp_summed = 0
+    if kind == "ms_lora":
+        index = tlora.unet_module_index(ModelScopeUNetConfig().tiny())
+        leaves = {f"{n}.{k}": v.size for n, ab in mr.lora_tree(unet).items() for k, v in ab.items()}
+        tp_summed = sum(v for n, v in leaves.items() if index[n.rsplit(".", 1)[0]][0] in layout)
+    else:
+        leaves = {n: p.numel() // (shape["tp"] if n in layout else 1)
+                  for n, p in unet.named_parameters()}
+    want = {(axis, "all-reduce", "gradient sum"): [2, 4 * sum(leaves.values()) + 4]
+            for axis in ("sp", "dp") if shape[axis] > 1}
+    if shape["tp"] > 1 and tp_summed:
+        want["tp", "all-reduce", "gradient sum"] = [1, 4 * tp_summed]
+    return want
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_mesh_steps_follow_the_communication_model(ranks, unets, kind):
+    """Every rank's step of every mesh, recorded: each site the tp and sp
+    hooks installed called once; forward and backward collectives exactly
+    those the sites give (``site_census``; every sp gather carrying all the
+    frames); the gradient sums of ``_gradient_sums``; nothing else, and no
+    all-gather of a full parameter outside the test's own gathers (the save
+    phase)."""
+    unet = unets[kind[:2]]
+    full = param_full_shapes(unet)
+    for mesh, shape in mr.MESHES.items():
+        tp, sp = shape.get("tp", 1), shape.get("sp", 1)
+        sites = installed_sites(unet, tp, sp)
+        for rank in _mesh_ranks(mesh):
+            label = f"{kind} {mesh} rank {rank}"
+            audit = _audits(ranks.wait(), rank)[f"{kind}_{mesh}"]
+            inv, census = Inventory.from_json(audit["ops"]), Census.from_json(audit["census"])
+            called = {k: v for k, v in census.site_calls.items() if k != "column-parallel"}
+            assert called == dict(sites), label
+            step = inv.select(phases=("forward", "backward", "gradient sum"))
+            assert step.tally() == {**census.expected, **_gradient_sums(kind, mesh, unet)}, label
+            assert all(dims[1] == mr.FRAMES for op in inv.select(axis="sp", kind="all-gather").ops
+                       for dims in op.shapes), label
+            assert all((op.kind, op.axis) == ("all-gather", "tp")
+                       for op in inv.select(phases=(SAVE,)).ops), label
+            assert_no_param_gather(inv, full)
+
+
+def test_planted_weight_gather_passes_the_numeric_gate_and_fails_the_audit(jax_steps, cases,
+                                                                           ranks, unets):
+    """ModelScope full at tp = 2 with one row-parallel site that gathers its
+    full out-projection weight at every call and drops it: its loss and
+    every gradient are the sound tp step's exactly (so within the gate
+    against the JAX step), and ``assert_no_param_gather`` fails its
+    inventory, on both ranks, where it passes the sound step's."""
+    want_loss, want = jax_steps["ms_full"]
+    fault, sound = cases["ms_full_tp_gather_fault"], cases["ms_full_tp"]
+    assert fault["loss"] == sound["loss"]
+    assert all(torch.equal(fault["grads"][k], g) for k, g in sound["grads"].items())
+    np.testing.assert_allclose(fault["loss"], want_loss, rtol=LOSS_RTOL)
+    assert max(_gradient_errors(fault["grads"], want).values()) <= 1.0
+    full = param_full_shapes(unets["ms"])
+    for rank in _mesh_ranks("tp"):
+        audits = _audits(ranks.wait(), rank)
+        assert_no_param_gather(Inventory.from_json(audits["ms_full_tp"]["ops"]), full)
+        with pytest.raises(AssertionError, match="rebuilds full parameter shapes"):
+            assert_no_param_gather(Inventory.from_json(audits["ms_full_tp_gather_fault"]["ops"]),
+                                   full)
+
+
+def test_sharded_state_save_gathers_full_parameters_only_in_the_save_phase(ranks, unets):
+    """The save of the sp = 2 x tp = 2 state: the ranks of rank 0's tp group
+    gather each split leaf of the parameters, both AdamW moments and the
+    EMA shadow over tp, whole (4 x the layout's leaves, every one a full
+    parameter's shape), all in the save phase, which the audit leaves out;
+    the other ranks issue nothing; the restore issues nothing. The same
+    gathers outside the save phase fail the audit."""
+    unet = unets["ms"]
+    layout = tp_layout(unet, 2)
+    shapes = {n: tuple(p.shape) for n, p in unet.named_parameters()}
+    full = param_full_shapes(unet)
+    for rank in _mesh_ranks("sp_tp"):
+        state = _audits(ranks.wait(), rank)["state"]
+        saved, restored = Inventory.from_json(state["save"]), Inventory.from_json(state["restore"])
+        assert not restored.ops, rank
+        if rank >= 2:  # sp index 1: not of rank 0's tp group
+            assert not saved.ops, rank
+            continue
+        assert [(op.kind, op.axis, op.phase) for op in saved.ops] == \
+            [("all-gather", "tp", SAVE)] * 4 * len(layout), rank
+        assert [op.shapes for op in saved.ops] == [(shapes[n],) for n in layout] * 4, rank
+        assert_no_param_gather(saved, full)
+        with pytest.raises(AssertionError, match="rebuilds full parameter shapes"):
+            assert_no_param_gather(
+                Inventory([dataclasses.replace(op, phase="forward") for op in saved.ops]), full)

@@ -20,7 +20,10 @@ Tolerances:
     sample at the serial shapes, its noise from the same seed + i);
   * tp, sp and the one-process batched dp: PNG frames within 2 levels of
     the serial ones (float32 in another summation order, through the
-    decode, rounded to uint8).
+    decode, rounded to uint8);
+  * the collectives each rank issued (``parallel/audit.py``, recorded in
+    the same runs): their calls and bytes exactly those that the sites the
+    tp and sp hooks installed give, times the UNet calls.
 """
 
 import json
@@ -47,9 +50,20 @@ from t2v.parallel import dp_sample as jdp
 from t2v.parallel import multihost as jmh
 from t2v.parallel.sharding import _spec_for_path
 from t2v_torch.core.config import T2VOutputArgs
-from t2v_torch.diffusion.schedules import DiffusionSchedule
+from t2v_torch.diffusion.schedules import (
+    DiffusionSchedule,
+    make_ddim_timesteps,
+    modelscope_timesteps,
+)
 from t2v_torch.parallel import dp_sample as tdp
 from t2v_torch.parallel import multihost as tmh
+from t2v_torch.parallel.audit import (
+    Census,
+    Inventory,
+    assert_no_param_gather,
+    installed_sites,
+    param_full_shapes,
+)
 from t2v_torch.parallel.sharding import shard_dim
 from t2v_torch.pipeline import run as run_mod
 import _torch_ranks as ranks_mod
@@ -104,6 +118,13 @@ def ranks(tmp_path_factory):
         group.close()
 
 
+@pytest.fixture(scope="module")
+def unets():
+    """The tiny seeded UNet of each family (``seeded_unet``), built once:
+    the tests read it and do not change it."""
+    return {family: ranks_mod.seeded_unet(family) for family in ("ms", "vc")}
+
+
 def test_work_split_seeds_and_split_rules_match_jax(monkeypatch):
     """``local_shard`` and ``host_seed`` at every rank of 1-4 processes, and
     the split rules (batch over dp, frames over sp where sp divides them)
@@ -143,12 +164,12 @@ def _tagged(unet) -> dict:
 
 
 @pytest.mark.parametrize("family", ["ms", "vc"])
-def test_sharding_rules_match_jax_for_every_unet_leaf(family):
+def test_sharding_rules_match_jax_for_every_unet_leaf(unets, family):
     """For every leaf of the tiny UNet, the port's rule (the torch dim that
     tp splits) against ``_spec_for_path`` through the JAX package's own
     converter: a (in, out) kernel split on out is a torch (out, in) weight
     split on dim 0, one split on in is split on dim 1."""
-    unet = ranks_mod.seeded_unet(family)
+    unet = unets[family]
     sd = _tagged(unet)
     names = list(sd)
     params = (convert_unet(sd, JMS().tiny()) if family == "ms"
@@ -217,11 +238,11 @@ def test_batched_noise_rows_are_the_serial_draws():
 
 
 @pytest.mark.parametrize("family", ["ms", "vc"])
-def test_tp_and_sp_unet_forwards_match_jax(family, ranks):
+def test_tp_and_sp_unet_forwards_match_jax(family, ranks, unets):
     """The tiny UNet split over two ranks (tp = 2: every attention and
     feed-forward halved; sp = 2: two frames a rank) against the JAX UNet's
     apply on the same weights."""
-    sd = {k: v.numpy() for k, v in ranks_mod.seeded_unet(family).state_dict().items()}
+    sd = {k: v.numpy() for k, v in unets[family].state_dict().items()}
     if family == "ms":
         params, model = convert_unet(sd, JMS().tiny()), JUNet(cfg=JMS().tiny())
     else:
@@ -255,12 +276,14 @@ def _recorded_seed(outdir: Path) -> int:
 @pytest.fixture(scope="module")
 def serial(tmp_path_factory, ranks):
     """The serial loop's frames of every two-rank case's request, in this
-    process, and the one-process batched dp run of each dp case. A case
-    with a random seed (-1) runs at the seed that the ranks' rank 0 wrote."""
+    process, and the one-process batched dp run of each dp case; a request
+    that several cases share (the dp, tp and sp cases of a family) runs
+    once. A case with a random seed (-1) runs at the seed that the ranks'
+    rank 0 wrote."""
     pytest.importorskip("cv2")
     root = tmp_path_factory.mktemp("serial")
     saved = run_mod._warm_pipe
-    pipes, frames = {}, {}
+    pipes, frames, runs = {}, {}, {}
     cases = sorted(ranks_mod.RUN_CASES, key=lambda c: c[3].get("seed") == -1)
     try:
         for case, family, kwargs, fields in cases:
@@ -271,11 +294,15 @@ def serial(tmp_path_factory, ranks):
             for label, shards in (("serial", {}), ("batched", kwargs)):
                 if label == "batched" and "dp_shards" not in kwargs:
                     continue
-                out = root / f"{case}_{label}"
-                run_mod.run(ranks_mod.request(fields), T2VOutputArgs(skip_video_creation=True),
-                            pipe=pipe, outdir=str(out), callback_interval=None,
-                            keep_in_vram=False, **shards)
-                frames[case, label] = _frames(out)
+                key = (family, label, tuple(sorted(fields.items())))
+                if key not in runs:
+                    out = root / f"{case}_{label}"
+                    run_mod.run(ranks_mod.request(fields),
+                                T2VOutputArgs(skip_video_creation=True), pipe=pipe,
+                                outdir=str(out), callback_interval=None, keep_in_vram=False,
+                                **shards)
+                    runs[key] = _frames(out)
+                frames[case, label] = runs[key]
     finally:
         run_mod._warm_pipe = saved
     return frames
@@ -322,3 +349,88 @@ def test_two_rank_run_refuses_requests_that_leave_ranks_unused(ranks):
     for case, start in want.items():
         assert got[case].startswith(start), (case, got[case])
         assert not (out / case).exists(), case
+
+
+def _audits(out: Path, rank: int) -> dict:
+    """{case: (Inventory, Census)} that ``rank`` recorded."""
+    raw = json.loads((out / f"audit{rank}.json").read_text())
+    return {case: (Inventory.from_json(a["ops"]), Census.from_json(a["census"]))
+            for case, a in raw.items()}
+
+
+def _sites_called(census: Census) -> dict:
+    return {k: v for k, v in census.site_calls.items() if k != "column-parallel"}
+
+
+def _assert_unet_calls(inv: Inventory, census: Census, unet, tp: int, sp: int, calls: int,
+                       label: str) -> None:
+    """The inventory of ``calls`` UNet calls at tp x sp against the model:
+    every site the hooks installed called once a call, and the collectives
+    exactly those the sites give (``site_census``): at tp one float32
+    all-reduce of each row-parallel site's output and nothing else; at sp
+    one all-gather of each temporal site's frames, every gathered shape
+    carrying all of them, and one all-reduce of 2 x batch x 32 groups
+    floats at each frame GroupNorm; no all-gather of a full parameter."""
+    sites = installed_sites(unet, tp, sp)
+    assert sites and _sites_called(census) == {k: calls * n for k, n in sites.items()}, label
+    assert inv.tally() == census.expected, label
+    assert all(op.dtype == "float32" for op in inv.select(kind="all-reduce").ops), label
+    if tp > 1:
+        assert set(inv.tally()) == {("tp", "all-reduce", "forward")}, label
+        assert len(inv.ops) == calls * sites["row-parallel"], label
+    if sp > 1:
+        gathers = inv.select(kind="all-gather").ops
+        assert len(gathers) == calls * sites["temporal"], label
+        assert all(shape[1] == ranks_mod.FRAMES for op in gathers for shape in op.shapes), label
+        norms = inv.select(kind="all-reduce").ops
+        assert len(norms) == calls * sites.get("group-norm", 0), label
+        assert all(op.bytes == 2 * op.shapes[0][1] * 32 * 4 and op.shapes[0][2] == 32
+                   for op in norms), label
+    assert_no_param_gather(inv, param_full_shapes(unet))
+
+
+@pytest.mark.parametrize("family", ["ms", "vc"])
+def test_sharded_unet_calls_follow_the_communication_model(ranks, unets, family):
+    """One tiny UNet call of each family at tp = 2 and at sp = 2, on each
+    rank, recorded: the collectives the port's model gives its sites
+    (``_assert_unet_calls``), calls and bytes."""
+    unet = unets[family]
+    for rank in range(2):
+        audits = _audits(ranks.wait(), rank)
+        for kind, (tp, sp) in (("tp", (2, 1)), ("sp", (1, 2))):
+            inv, census = audits[f"unet_{family}_{kind}"]
+            _assert_unet_calls(inv, census, unet, tp, sp, 1, f"{family} {kind} rank {rank}")
+
+
+def test_sharded_requests_follow_the_communication_model(ranks, unets):
+    """Every two-rank ``run`` case, recorded on each rank: rank 0's seed
+    broadcast once, the UNet calls' collectives (``_assert_unet_calls``, one
+    CFG-batched call a timestep of the sampler) and the final gathers, nothing else. At dp = 2
+    no collective runs inside the sampling loop: the broadcast and one
+    gather of the samples are all."""
+    # the tiny VAE halves the width once
+    steps, lat = ranks_mod.REQUEST["steps"], ranks_mod.REQUEST["width"] // 2
+    n, f = ranks_mod.REQUEST["batch_count"], ranks_mod.FRAMES
+    for rank in range(2):
+        audits = _audits(ranks.wait(), rank)
+        for case, family, kwargs, fields in ranks_mod.RUN_CASES:
+            inv, census = audits[case]
+            label = f"{case} rank {rank}"
+            seed, *loop, gather = inv.ops
+            assert (seed.kind, seed.axis, seed.shapes, seed.bytes) == \
+                ("broadcast", "default", ((1,),), 8), label
+            assert (gather.kind, gather.axis) == ("all-gather", "dp"), label
+            if "dp_shards" in kwargs:  # one sample a rank, gathered
+                assert not loop and census.expected == {}, label
+                assert gather.shapes == ((2, 1, f, lat, lat, 4),), label
+                continue
+            assert gather.shapes == ((1, n, f, lat, lat, 4),), label
+            tp, sp = kwargs.get("tp_shards", 1), kwargs.get("sp_shards", 1)
+            if sp > 1:  # the frames of the finished latents, gathered
+                final = loop.pop()
+                assert (final.kind, final.axis, final.shapes) == \
+                    ("all-gather", "sp", ((n, f, lat, lat, 4),)), label
+            # one CFG-batched UNet call a timestep of the family's sampler
+            calls = len(modelscope_timesteps(1000, steps) if family == "ms"
+                        else make_ddim_timesteps(steps, 1000))
+            _assert_unet_calls(Inventory(loop), census, unets[family], tp, sp, calls, label)
