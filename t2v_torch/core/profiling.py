@@ -1,10 +1,16 @@
 """Tracing and run provenance of the port.
 
 The port's counterpart of the JAX package's ``core/profiling.py``:
+  * ``span(name)``  — a ``torch.profiler.record_function`` range while a
+    profiler records, and a shared no-op context otherwise (one flag test):
+    the port's layers open ``t2v.*`` spans (request phases, sampler steps,
+    UNet calls and blocks, the VAE encode, training phases) that land on
+    the profiler's clock beside the kernels they launch;
   * ``PhaseTimes``  — host seconds per named phase (text encode, sample,
-    decode, stitch), summed over every entry of the phase;
+    decode, emit), summed over every entry of the phase; each phase is
+    also the span ``t2v.<phase>``;
   * ``trace(dir)``  — a ``torch.profiler`` trace (host and, on the card,
-    device activity) written to ``dir`` as a Chrome trace;
+    device activity, with the spans) written to ``dir`` as a Chrome trace;
   * ``RunManifest`` — the machine-readable record written next to each
     batch's outputs, beside the human-readable ``args.txt``. It records
     torch's version and the device the run used where the JAX package
@@ -21,12 +27,42 @@ import time
 from dataclasses import dataclass, field
 from typing import Any
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+
+class _Off:
+    """The context ``span`` returns with no profiler: methods of fixed arity,
+    cheaper to enter and leave than ``contextlib.nullcontext``."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_OFF = _Off()
+
+
+def span(name: str, args: str | None = None):
+    """A ``record_function(name, args)`` range while a ``torch.profiler``
+    records (the CLI's ``--profile``, a benchmark's trace), else a shared
+    no-op context: one test of the profiler's own flag, no synchronize, no
+    host copy, no device allocation."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name, args)
+
 
 @dataclass
 class PhaseTimes:
-    """Host seconds per named phase, summed over the phase's entries. A
-    phase that runs work on the card should end in a synchronize, or the
-    time is the enqueue's."""
+    """Host seconds per named phase, summed over the phase's entries (also
+    when the body raises); each entry is the span ``t2v.<name>``. A phase
+    that runs work on the card should end in a synchronize, or the time is
+    the enqueue's."""
 
     times: dict[str, float] = field(default_factory=dict)
 
@@ -34,9 +70,15 @@ class PhaseTimes:
     def phase(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span("t2v." + name):
+                yield
         finally:
             self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
+
+    def add(self, times: dict[str, float]) -> None:
+        """Sum another record's phases (a request's ``timings``) into this one."""
+        for name, s in times.items():
+            self.times[name] = self.times.get(name, 0.0) + s
 
     def summary(self) -> str:
         return " ".join(f"{k}={v:.2f}s" for k, v in self.times.items())
@@ -49,7 +91,6 @@ def trace(trace_dir: str | None):
     if not trace_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -87,8 +128,6 @@ class RunManifest:
     @classmethod
     def from_args(cls, args, *, seed: int, device="cpu",
                   phase_times: dict | None = None) -> "RunManifest":
-        import torch
-
         import t2v_torch
 
         dev = torch.device(device)

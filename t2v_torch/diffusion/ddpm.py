@@ -22,6 +22,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from t2v_torch.core.profiling import span
 from t2v_torch.diffusion.schedules import DiffusionSchedule
 
 NAME = "DDPM"
@@ -40,19 +41,20 @@ def sample(eps_fn: Callable, schedule: DiffusionSchedule, x: torch.Tensor, *,
     std = np.exp(0.5 * schedule.posterior_log_variance_clipped)
     x = x.float()
     for i in range(T):
-        t = T - 1 - i
-        eps = eps_fn(x, float(t), i).float()
-        x0 = float(sr[t]) * x - float(srm1[t]) * eps
-        if clip_denoised:
-            x0 = x0.clamp(-1.0, 1.0)
-        mean = float(pm1[t]) * x0 + float(pm2[t]) * x
-        if t == 0:
-            x = mean
-            continue
-        if noise_table is not None:
-            noise = torch.as_tensor(noise_table[i]).to(device=x.device, dtype=torch.float32)
-        else:
-            noise = torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=torch.float32)
-        x = mean + float(std[t]) * noise
+        with span("t2v.step"):
+            t = T - 1 - i
+            eps = eps_fn(x, float(t), i).float()
+            x0 = float(sr[t]) * x - float(srm1[t]) * eps
+            if clip_denoised:
+                x0 = x0.clamp(-1.0, 1.0)
+            mean = float(pm1[t]) * x0 + float(pm2[t]) * x
+            if t == 0:
+                x = mean
+                continue
+            if noise_table is not None:
+                noise = torch.as_tensor(noise_table[i]).to(device=x.device, dtype=torch.float32)
+            else:
+                noise = torch.randn(x.shape, generator=generator, device=x.device,
+                                    dtype=torch.float32)
+            x = mean + float(std[t]) * noise
     return x

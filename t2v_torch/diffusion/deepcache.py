@@ -22,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from t2v_torch.core.profiling import span
 from t2v_torch.diffusion import ddim as ddim_mod
 from t2v_torch.diffusion import ddim_gaussian as gaussian_mod
 from t2v_torch.diffusion import euler as euler_mod
@@ -107,6 +108,7 @@ def sample_loop_deepcache(
     progress = sampling_mod._Progress(callback, callback_interval, p.steps)
     feat = None
     for i in range(p.steps):
-        x, feat = body(x, feat, i)
-        progress(i + 1)
+        with span("t2v.step"):
+            x, feat = body(x, feat, i)
+            progress(i + 1)
     return x

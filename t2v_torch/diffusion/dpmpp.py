@@ -23,6 +23,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from t2v_torch.core.profiling import span
 from t2v_torch.diffusion.schedules import DiffusionSchedule
 from t2v_torch.diffusion.unipc import _discrete_marginals
 
@@ -106,12 +107,13 @@ def sample(x, model_fn: Callable, p: Plan, on_step: Callable[[int], None] | None
     step i."""
     d_prev = torch.zeros_like(x)
     for i in range(p.steps):
-        d = model_fn(x, p.t_input[i], i)
-        d_bar = float(p.c_cur[i]) * d + float(p.c_prev[i]) * d_prev
-        x = float(p.sig_ratio[i]) * x + float(p.growth[i]) * d_bar
-        d_prev = d
-        if on_step is not None:
-            on_step(i + 1)
+        with span("t2v.step"):
+            d = model_fn(x, p.t_input[i], i)
+            d_bar = float(p.c_cur[i]) * d + float(p.c_prev[i]) * d_prev
+            x = float(p.sig_ratio[i]) * x + float(p.growth[i]) * d_bar
+            d_prev = d
+            if on_step is not None:
+                on_step(i + 1)
     return x
 
 

@@ -41,6 +41,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from t2v_torch.core.profiling import span
 from t2v_torch.diffusion import ddim as ddim_mod
 from t2v_torch.diffusion import ddim_gaussian as gaussian_mod
 from t2v_torch.diffusion import dpmpp as dpmpp_mod
@@ -385,6 +386,7 @@ def sample_loop(
                           parameterization, draws)
     progress = _Progress(callback, callback_interval, p.steps)
     for i in range(p.steps):
-        x = body(x, i)
-        progress(i + 1)
+        with span("t2v.step"):
+            x = body(x, i)
+            progress(i + 1)
     return x

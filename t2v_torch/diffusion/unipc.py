@@ -28,6 +28,7 @@ from typing import Callable
 
 import numpy as np
 
+from t2v_torch.core.profiling import span
 from t2v_torch.diffusion.schedules import DiffusionSchedule
 
 NAME = "UniPC"
@@ -151,9 +152,10 @@ def sample(x, model_fn: Callable, p: Plan, on_step: Callable[[int], None] | None
     steps = p.steps
     models = [model_fn(x, p.t_input[0], 0)]
     for s in range(1, steps + 1):
-        x, m = _update(x, models, s, order_at(s, steps), s < steps, p, model_fn)
-        if s < steps:
-            models = [*models, m][-ORDER:]
-        if on_step is not None:
-            on_step(s)
+        with span("t2v.step"):
+            x, m = _update(x, models, s, order_at(s, steps), s < steps, p, model_fn)
+            if s < steps:
+                models = [*models, m][-ORDER:]
+            if on_step is not None:
+                on_step(s)
     return x

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from t2v_torch.core.config import ModelScopeUNetConfig
+from t2v_torch.core.profiling import span
 from t2v_torch.models import blocks as B
 
 
@@ -212,14 +213,15 @@ class UNetSD(nn.Module):
 
     def _run_block(self, d: BlockDesc, x, e, ctx, b: int, f: int):
         mod = self.get_submodule(d.torch_path)
-        if d.kind in ("conv_in", "downsample", "upsample"):
-            return mod(x)
-        if d.kind == "res":
-            return mod(x, e, f)
-        if d.kind == "spatial":
-            return mod(x, context=ctx)
-        bf, h, w, c = x.shape
-        return mod(x.reshape(b, f, h, w, c)).reshape(bf, h, w, c)
+        with span("t2v.unet." + d.kind):
+            if d.kind in ("conv_in", "downsample", "upsample"):
+                return mod(x)
+            if d.kind == "res":
+                return mod(x, e, f)
+            if d.kind == "spatial":
+                return mod(x, context=ctx)
+            bf, h, w, c = x.shape
+            return mod(x.reshape(b, f, h, w, c)).reshape(bf, h, w, c)
 
     def forward(self, x, t, context, *, deep_feature=None, return_deep: bool = False,
                 cache_split: int = 1):
@@ -229,39 +231,40 @@ class UNetSD(nn.Module):
         activation entering the last ``cache_split`` decoder entries; a call
         given that feature as ``deep_feature`` skips the deep trunk and runs
         only the shallow encoder head and decoder tail."""
-        b, f, h, w, _ = x.shape
-        dtype = self.out[2].weight.dtype
-        e = B.sinusoidal_embedding(t, self.cfg.dim).to(dtype)
-        e = self.time_embed[2](F.silu(self.time_embed[0](e)))
-        # per-frame repeat in torch repeat_interleave order
-        e_f = e.repeat_interleave(f, dim=0)
-        ctx_f = context.to(dtype).repeat_interleave(f, dim=0)
-        x = x.to(dtype).reshape(b * f, h, w, x.shape[-1])
+        with span("t2v.unet"):
+            b, f, h, w, _ = x.shape
+            dtype = self.out[2].weight.dtype
+            e = B.sinusoidal_embedding(t, self.cfg.dim).to(dtype)
+            e = self.time_embed[2](F.silu(self.time_embed[0](e)))
+            # per-frame repeat in torch repeat_interleave order
+            e_f = e.repeat_interleave(f, dim=0)
+            ctx_f = context.to(dtype).repeat_interleave(f, dim=0)
+            x = x.to(dtype).reshape(b * f, h, w, x.shape[-1])
 
-        topo = self.topology
-        cached = deep_feature is not None
-        n_dec = len(topo.decoder)
-        split = cache_split if (cached or return_deep) else 0
-        xs = []
-        for entry in topo.encoder[:split] if cached else topo.encoder:
-            for d in entry:
-                x = self._run_block(d, x, e_f, ctx_f, b, f)
-            xs.append(x)
-        deep = None
-        if cached:
-            x = deep_feature.to(dtype)
-        else:
-            for d in topo.middle:
-                x = self._run_block(d, x, e_f, ctx_f, b, f)
-        for di, entry in enumerate(topo.decoder[n_dec - split:] if cached else topo.decoder):
-            if return_deep and not cached and di == n_dec - split:
-                deep = x
-            x = torch.cat([x, xs.pop()], dim=-1)
-            for d in entry:
-                x = self._run_block(d, x, e_f, ctx_f, b, f)
+            topo = self.topology
+            cached = deep_feature is not None
+            n_dec = len(topo.decoder)
+            split = cache_split if (cached or return_deep) else 0
+            xs = []
+            for entry in topo.encoder[:split] if cached else topo.encoder:
+                for d in entry:
+                    x = self._run_block(d, x, e_f, ctx_f, b, f)
+                xs.append(x)
+            deep = None
+            if cached:
+                x = deep_feature.to(dtype)
+            else:
+                for d in topo.middle:
+                    x = self._run_block(d, x, e_f, ctx_f, b, f)
+            for di, entry in enumerate(topo.decoder[n_dec - split:] if cached else topo.decoder):
+                if return_deep and not cached and di == n_dec - split:
+                    deep = x
+                x = torch.cat([x, xs.pop()], dim=-1)
+                for d in entry:
+                    x = self._run_block(d, x, e_f, ctx_f, b, f)
 
-        x = self.out[2](self.out[0](x))
-        out = x.reshape(b, f, h, w, self.cfg.out_dim)
-        if return_deep and not cached:
-            return out, deep
-        return out
+            x = self.out[2](self.out[0](x))
+            out = x.reshape(b, f, h, w, self.cfg.out_dim)
+            if return_deep and not cached:
+                return out, deep
+            return out

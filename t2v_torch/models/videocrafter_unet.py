@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from t2v_torch.core.config import VideoCrafterUNetConfig
+from t2v_torch.core.profiling import span
 from t2v_torch.kernels.attention import relpos_attention
 from t2v_torch.models import blocks as B
 
@@ -442,11 +443,12 @@ class VideoCrafterUNet(nn.Module):
 
     def _run_block(self, d: VCBlockDesc, x, emb, ctx):
         mod = self.get_submodule(d.torch_path)
-        if d.kind == "res":
-            return mod(x, emb)
-        if d.kind == "st":
-            return mod(x, context=ctx)
-        return mod(x)
+        with span("t2v.unet." + d.kind):
+            if d.kind == "res":
+                return mod(x, emb)
+            if d.kind == "st":
+                return mod(x, context=ctx)
+            return mod(x)
 
     def forward(self, x, t, context, features_adapter=None, y=None, time_emb_replace=None,
                 temporal_context=None):
@@ -456,49 +458,50 @@ class VideoCrafterUNet(nn.Module):
         time_emb_replace: a precomputed (B, 4*model_channels) embedding that
         replaces the timestep embedding. temporal_context: FPS embedding
         (B|1, 4*model_channels), added to the time embedding."""
-        cfg = self.cfg
-        dtype = self.out[2].weight.dtype
-        if time_emb_replace is None:
-            e = B.sinusoidal_embedding(t, cfg.model_channels).to(dtype)
-            emb = self.time_embed[2](F.silu(self.time_embed[0](e)))
-        else:
-            emb = time_emb_replace.to(dtype)
-        if y is not None:
-            if cfg.num_classes is not None and not torch.is_floating_point(y):
-                lab = self.label_emb(y)
-            elif y.shape[-1] == cfg.model_channels * 4:
-                lab = y
-            elif self.label_proj is not None and y.shape[-1] == self.label_proj.in_features:
-                lab = self.label_proj(y.to(dtype))
+        with span("t2v.unet"):
+            cfg = self.cfg
+            dtype = self.out[2].weight.dtype
+            if time_emb_replace is None:
+                e = B.sinusoidal_embedding(t, cfg.model_channels).to(dtype)
+                emb = self.time_embed[2](F.silu(self.time_embed[0](e)))
             else:
-                raise ValueError(
-                    f"y of width {y.shape[-1]}: this UNet takes a (B,) label, or an embedding "
-                    f"of width {cfg.model_channels * 4}"
-                    + (f" or {self.label_proj.in_features}" if self.label_proj else ""))
-            emb = emb + lab.to(emb.dtype)
-        if temporal_context is not None:
-            emb = emb + temporal_context.to(emb.dtype)
+                emb = time_emb_replace.to(dtype)
+            if y is not None:
+                if cfg.num_classes is not None and not torch.is_floating_point(y):
+                    lab = self.label_emb(y)
+                elif y.shape[-1] == cfg.model_channels * 4:
+                    lab = y
+                elif self.label_proj is not None and y.shape[-1] == self.label_proj.in_features:
+                    lab = self.label_proj(y.to(dtype))
+                else:
+                    raise ValueError(
+                        f"y of width {y.shape[-1]}: this UNet takes a (B,) label, or an embedding "
+                        f"of width {cfg.model_channels * 4}"
+                        + (f" or {self.label_proj.in_features}" if self.label_proj else ""))
+                emb = emb + lab.to(emb.dtype)
+            if temporal_context is not None:
+                emb = emb + temporal_context.to(emb.dtype)
 
-        x = x.to(dtype)
-        ctx = None if context is None else context.to(dtype)
-        topo = self.topology
-        hs = []
-        adapter_idx = 0
-        for eid, entry in enumerate(topo.encoder):
-            for d in entry:
+            x = x.to(dtype)
+            ctx = None if context is None else context.to(dtype)
+            topo = self.topology
+            hs = []
+            adapter_idx = 0
+            for eid, entry in enumerate(topo.encoder):
+                for d in entry:
+                    x = self._run_block(d, x, emb, ctx)
+                if (features_adapter is not None and (eid + 1) % 3 == 0
+                        and adapter_idx < len(features_adapter)):
+                    feat = features_adapter[adapter_idx].to(x.dtype)
+                    if feat.dim() == 4:  # (B, h, w, c): the same map for every frame
+                        feat = feat[:, None]
+                    x = x + feat
+                    adapter_idx += 1
+                hs.append(x)
+            for d in topo.middle:
                 x = self._run_block(d, x, emb, ctx)
-            if (features_adapter is not None and (eid + 1) % 3 == 0
-                    and adapter_idx < len(features_adapter)):
-                feat = features_adapter[adapter_idx].to(x.dtype)
-                if feat.dim() == 4:  # (B, h, w, c): the same map for every frame
-                    feat = feat[:, None]
-                x = x + feat
-                adapter_idx += 1
-            hs.append(x)
-        for d in topo.middle:
-            x = self._run_block(d, x, emb, ctx)
-        for entry in topo.decoder:
-            x = torch.cat([x, hs.pop()], dim=-1)
-            for d in entry:
-                x = self._run_block(d, x, emb, ctx)
-        return self.out[2](self.out[0](x))
+            for entry in topo.decoder:
+                x = torch.cat([x, hs.pop()], dim=-1)
+                for d in entry:
+                    x = self._run_block(d, x, emb, ctx)
+            return self.out[2](self.out[0](x))

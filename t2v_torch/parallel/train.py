@@ -54,6 +54,7 @@ import torch
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from t2v_torch.core.profiling import span
 from t2v_torch.diffusion.schedules import DiffusionSchedule
 from t2v_torch.parallel import audit
 from t2v_torch.parallel.sharding import parallel_unet, shard_params, shard_tensor
@@ -218,15 +219,17 @@ class TrainStep:
         this rank's pieces, reduced over the mesh. A leaf the loss does not
         reach gets zeros (it still decays, as under optax), so every rank
         reduces the same list."""
-        term = self._term(state.params, batch, generator, draw)
+        with span("t2v.train.forward"):
+            term = self._term(state.params, batch, generator, draw)
         items = tree_items(state.params)
-        grads = torch.autograd.grad(term, [p for _, p in items], allow_unused=True)
+        with span("t2v.train.backward"):
+            grads = torch.autograd.grad(term, [p for _, p in items], allow_unused=True)
         grads = [g if g is not None else torch.zeros_like(p) for (_, p), g in zip(items, grads)]
         loss = term.detach()
         mesh = self.mesh
         if mesh is None:
             return loss, grads
-        with audit.phase("gradient sum"):
+        with audit.phase("gradient sum"), span("t2v.train.grad_sum"):
             for axis in (mesh.sp, mesh.dp):
                 if axis.size > 1:
                     grads = axis.all_reduce_buckets(grads)
@@ -240,13 +243,14 @@ class TrainStep:
     def apply_gradients(self, state: TrainState, grads) -> TrainState:
         """One AdamW step of ``grads`` on the state's leaves, the step
         counter, and the EMA shadow when the step keeps one."""
-        for p, g in zip(tree_leaves(state.params), grads):
-            p.grad = g
-        state.opt_state.step()
-        state.opt_state.zero_grad(set_to_none=True)
-        state.step += 1
-        if self.ema_decay is not None and state.ema_params is not None:
-            _ema_update(state.ema_params, state.params, self.ema_decay)
+        with span("t2v.train.optimizer"):
+            for p, g in zip(tree_leaves(state.params), grads):
+                p.grad = g
+            state.opt_state.step()
+            state.opt_state.zero_grad(set_to_none=True)
+            state.step += 1
+            if self.ema_decay is not None and state.ema_params is not None:
+                _ema_update(state.ema_params, state.params, self.ema_decay)
         return state
 
     def __call__(self, state: TrainState, batch, generator, draw=None):

@@ -29,7 +29,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -47,6 +46,7 @@ from t2v_torch.core.config import (
     sanity_check_args,
 )
 from t2v_torch.core.dtypes import Policy
+from t2v_torch.core.profiling import PhaseTimes, span
 from t2v_torch.diffusion import deepcache as deepcache_mod
 from t2v_torch.diffusion.sampling import sample_loop
 from t2v_torch.diffusion.schedules import DiffusionSchedule
@@ -130,11 +130,12 @@ def compute_latents(vae: AutoencoderKL, frames_rgb, scale_factor: float,
     """(F, H, W, 3) float frames in [-1, 1] (numpy or tensor) -> (1, F, h, w, 4)
     scaled latents in float32: the deterministic posterior mean x
     ``scale_factor``, encoded ``DECODE_CHUNK`` frames at a time."""
-    x = torch.as_tensor(np.asarray(frames_rgb, np.float32) if not torch.is_tensor(frames_rgb)
-                        else frames_rgb.float()).to(device)
-    chunks = [encode_latents(vae, x[i : i + DECODE_CHUNK], scale_factor)
-              for i in range(0, x.shape[0], DECODE_CHUNK)]
-    return torch.cat(chunks, dim=0)[None]
+    with span("t2v.vae.encode"):
+        x = torch.as_tensor(np.asarray(frames_rgb, np.float32) if not torch.is_tensor(frames_rgb)
+                            else frames_rgb.float()).to(device)
+        chunks = [encode_latents(vae, x[i : i + DECODE_CHUNK], scale_factor)
+                  for i in range(0, x.shape[0], DECODE_CHUNK)]
+        return torch.cat(chunks, dim=0)[None]
 
 
 # sub-modules whose weights the JAX package initialises to zero
@@ -483,47 +484,46 @@ class ModelScopePipeline:
         if self.text_encoder is None or self.vae is None:
             raise ValueError("the VAE and text tower were released (release_aux); "
                              "call reload_aux() before infer()")
-        t0 = time.perf_counter()
-        self.text_encoder.comma_backtrack = args.comma_padding_backtrack
-        self.text_encoder.enable_emphasis = args.enable_emphasis
-        conditioning = self.text_encoder.encode_request(args.prompt, args.n_prompt, steps)
-        _sync(dev)
-        t_text = time.perf_counter() - t0
+        pt = PhaseTimes()
+        with span("t2v.request", str(batch_seed)):
+            with pt.phase("text"):
+                self.text_encoder.comma_backtrack = args.comma_padding_backtrack
+                self.text_encoder.enable_emphasis = args.enable_emphasis
+                conditioning = self.text_encoder.encode_request(args.prompt, args.n_prompt, steps)
+                _sync(dev)
 
-        t0 = time.perf_counter()
-        gen = rng_lib.generator(batch_seed, dev)
-        if noise is None:
-            noise = rng_lib.latent_noise(gen, shape, dev)
-        on_dev = lambda t: None if t is None else t.to(device=dev, dtype=torch.float32)
-        unet = self.unet
-        common = dict(
-            steps=steps, shape=shape, cond=conditioning.cond, uncond=conditioning.uncond,
-            guidance_scale=args.cfg_scale, eta=args.eta, sampler_name=args.sampler,
-            generator=gen, noise=noise.to(dev), step_noise=step_noise,
-            parameterization=self.unet_cfg.parameterization, callback=callback,
-            callback_interval=callback_interval, device=dev,
-        )
-        if (deep_cache_interval > 1 and latents is None and mask is None
-                and args.sampler in deepcache_mod.SAMPLERS):
-            x0 = deepcache_mod.sample_loop_deepcache(
-                lambda x, t, ctx: unet(x, t, ctx, return_deep=True),
-                lambda x, t, ctx, feat: unet(x, t, ctx, deep_feature=feat),
-                self.schedule, interval=deep_cache_interval, **common)
-        else:
-            x0 = sample_loop(
-                lambda x, t, ctx: unet(x, t, ctx), self.schedule, latents=on_dev(latents),
-                is_vid2vid=is_vid2vid, strength=args.strength, mask=on_dev(mask),
-                image_latents=on_dev(image_latents), inpaint_mode=inpaint_mode,
-                inpaint_noise=inpaint_noise, **common)
-        _sync(dev)
-        t_sample = time.perf_counter() - t0
+            with pt.phase("sample"):
+                gen = rng_lib.generator(batch_seed, dev)
+                if noise is None:
+                    noise = rng_lib.latent_noise(gen, shape, dev)
+                on_dev = lambda t: None if t is None else t.to(device=dev, dtype=torch.float32)
+                unet = self.unet
+                common = dict(
+                    steps=steps, shape=shape, cond=conditioning.cond, uncond=conditioning.uncond,
+                    guidance_scale=args.cfg_scale, eta=args.eta, sampler_name=args.sampler,
+                    generator=gen, noise=noise.to(dev), step_noise=step_noise,
+                    parameterization=self.unet_cfg.parameterization, callback=callback,
+                    callback_interval=callback_interval, device=dev,
+                )
+                if (deep_cache_interval > 1 and latents is None and mask is None
+                        and args.sampler in deepcache_mod.SAMPLERS):
+                    x0 = deepcache_mod.sample_loop_deepcache(
+                        lambda x, t, ctx: unet(x, t, ctx, return_deep=True),
+                        lambda x, t, ctx, feat: unet(x, t, ctx, deep_feature=feat),
+                        self.schedule, interval=deep_cache_interval, **common)
+                else:
+                    x0 = sample_loop(
+                        lambda x, t, ctx: unet(x, t, ctx), self.schedule, latents=on_dev(latents),
+                        is_vid2vid=is_vid2vid, strength=args.strength, mask=on_dev(mask),
+                        image_latents=on_dev(image_latents), inpaint_mode=inpaint_mode,
+                        inpaint_noise=inpaint_noise, **common)
+                _sync(dev)
 
-        t0 = time.perf_counter()
-        frames = self.decode_latents(x0[0])
-        t_decode = time.perf_counter() - t0
+            with pt.phase("decode"):
+                frames = self.decode_latents(x0[0])
         return InferResult(
             frames=frames, latents=x0, infotext=self.create_infotext(args, batch_seed),
-            timings={"text": t_text, "sample": t_sample, "decode": t_decode},
+            timings=dict(pt.times),
         )
 
     def create_infotext(self, args: T2VArgs, seed: int) -> str:

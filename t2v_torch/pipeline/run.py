@@ -49,6 +49,7 @@ import torch
 from t2v_torch.core import rng as rng_lib
 from t2v_torch.core.config import T2VArgs, T2VOutputArgs, sanity_check_args
 from t2v_torch.core.dtypes import Policy
+from t2v_torch.core.profiling import PhaseTimes, RunManifest, span
 from t2v_torch.core.state import InterruptedException, JobState, SkippedException
 from t2v_torch.core.state import state as default_state
 from t2v_torch.media.video import ffmpeg_stitch_video, vid2frames, video_to_data_url
@@ -56,7 +57,7 @@ from t2v_torch.parallel import multihost
 from t2v_torch.parallel.dp_sample import dp_sample, frames_split, sample_generators
 from t2v_torch.parallel.mesh import get_mesh
 from t2v_torch.parallel.sharding import parallel_unet
-from t2v_torch.pipeline.pipeline import ModelScopePipeline, _spatial_scale, load_pipeline
+from t2v_torch.pipeline.pipeline import ModelScopePipeline, _spatial_scale, _sync, load_pipeline
 from t2v_torch.pipeline.videocrafter import load_vc_pipeline
 
 
@@ -67,6 +68,9 @@ class RunResult:
     frame_dirs: list[str] = field(default_factory=list)
     infotexts: list[str] = field(default_factory=list)
     interrupted: bool = False
+    # host seconds of the request's phases, summed over its batches: text,
+    # sample, decode (``InferResult.timings``) and emit (``_emit_batch``)
+    timings: dict[str, float] = field(default_factory=dict)
 
 
 def _default_outdir() -> str:
@@ -292,12 +296,15 @@ def run(
         # the VideoCrafter DDPM chain (all the schedule's timesteps, not a
         # registry sampler) keeps the serial loop
         if max(dp_shards, tp_shards, sp_shards) > 1 and (is_ms or vc_sample_type != "ddpm"):
-            return _run_dp(
-                pipe, args, out_args, outdir, resolved_seed, timestring, save_frames,
-                (dp_shards, sp_shards, tp_shards), features_adapter, job_state,
-                latents=latents, is_vid2vid=is_vid2vid, skip_steps=skip_steps,
-                inpaint_mode=inpaint_mode, vc_sample_type=vc_sample_type, vc_uc_type=vc_uc_type)
+            with span("t2v.request", str(resolved_seed)):
+                return _run_dp(
+                    pipe, args, out_args, outdir, resolved_seed, timestring, save_frames,
+                    (dp_shards, sp_shards, tp_shards), features_adapter, job_state,
+                    latents=latents, is_vid2vid=is_vid2vid, skip_steps=skip_steps,
+                    inpaint_mode=inpaint_mode, vc_sample_type=vc_sample_type,
+                    vc_uc_type=vc_uc_type)
 
+        pt = PhaseTimes()
         for batch in range(args.batch_count):
             if job_state.interrupted:
                 result.interrupted = True
@@ -361,11 +368,15 @@ def run(
                 result.interrupted = True
                 break
 
-            _emit_batch(
-                result, list(res.frames), res.infotext, args, out_args, outdir,
-                timestring, batch, resolved_seed + batch, save_frames, pipe.device,
-            )
+            pt.add(res.timings)
+            with pt.phase("emit"):
+                _emit_batch(
+                    result, list(res.frames), res.infotext, args, out_args, outdir,
+                    timestring, batch, resolved_seed + batch, save_frames, pipe.device,
+                    phase_times=res.timings,
+                )
 
+        result.timings = dict(pt.times)
         return result
     finally:
         # 'Main Model Only': retain the warm UNet, drop the VAE and text
@@ -389,7 +400,11 @@ def _run_dp(pipe, args: T2VArgs, out_args, outdir, resolved_seed: int, timestrin
 
     ModelScope's masked inpainting start is built per sample with seed + i,
     as the serial loop builds batch i's; LVDM's static mask and the vid2vid
-    source broadcast over the samples."""
+    source broadcast over the samples.
+
+    The result's ``timings`` hold the request's phases: text, sample (one
+    synchronize at its end), and decode and emit summed over the batches;
+    each batch's manifest records text, sample and its own decode."""
     n = args.batch_count
     steps = args.steps - skip_steps
     job_state.begin_job(0, n, steps)
@@ -428,37 +443,42 @@ def _run_dp(pipe, args: T2VArgs, out_args, outdir, resolved_seed: int, timestrin
             inpaint_mode = "lvdm_static"
 
     sp_axis = mesh.sp if mesh is not None and frames_split(args.frames, sp) else None
-    if is_ms:
-        pipe.text_encoder.comma_backtrack = args.comma_padding_backtrack
-        pipe.text_encoder.enable_emphasis = args.enable_emphasis
-        conditioning = pipe.text_encoder.encode_request(args.prompt, args.n_prompt, steps)
-        cond, uncond = conditioning.cond, conditioning.uncond
-        sampler, combine, param = args.sampler, None, pipe.unet_cfg.parameterization
-        apply_fn = lambda x, t, ctx: pipe.unet(x, t, ctx)
-    else:
-        if vc_sample_type == "dpm++ 2m" and (mask is not None or vc_uc_type):
-            raise ValueError("sample_type='dpm++ 2m' does not support mask inpainting or "
-                             "uc_type CFG variants — use 'ddim'")
-        cond, uncond = pipe.encode_text([args.prompt]), pipe.encode_text([args.n_prompt])
-        sampler = {"ddim": "DDIM", "dpm++ 2m": "DPM++ 2M"}[vc_sample_type]
-        combine, param = vc_uc_type, pipe.cfg.parameterization
-        feats = features_adapter
-        if feats is not None and sp_axis is not None:
-            # (B, T, h, w, c) maps follow the frames; (B, h, w, c) ones are per sample
-            feats = tuple(sp_axis.shard(f, 1) if f.dim() == 5 else f for f in feats)
-        apply_fn = pipe.make_apply_fn(feats, pipe._resolve_temporal_context(args))
+    pt = PhaseTimes()
+    with pt.phase("text"):
+        if is_ms:
+            pipe.text_encoder.comma_backtrack = args.comma_padding_backtrack
+            pipe.text_encoder.enable_emphasis = args.enable_emphasis
+            conditioning = pipe.text_encoder.encode_request(args.prompt, args.n_prompt, steps)
+            cond, uncond = conditioning.cond, conditioning.uncond
+            sampler, combine, param = args.sampler, None, pipe.unet_cfg.parameterization
+            apply_fn = lambda x, t, ctx: pipe.unet(x, t, ctx)
+        else:
+            if vc_sample_type == "dpm++ 2m" and (mask is not None or vc_uc_type):
+                raise ValueError("sample_type='dpm++ 2m' does not support mask inpainting or "
+                                 "uc_type CFG variants — use 'ddim'")
+            cond, uncond = pipe.encode_text([args.prompt]), pipe.encode_text([args.n_prompt])
+            sampler = {"ddim": "DDIM", "dpm++ 2m": "DPM++ 2M"}[vc_sample_type]
+            combine, param = vc_uc_type, pipe.cfg.parameterization
+            feats = features_adapter
+            if feats is not None and sp_axis is not None:
+                # (B, T, h, w, c) maps follow the frames; (B, h, w, c) ones are per sample
+                feats = tuple(sp_axis.shard(f, 1) if f.dim() == 5 else f for f in feats)
+            apply_fn = pipe.make_apply_fn(feats, pipe._resolve_temporal_context(args))
 
-    with parallel_unet(pipe.unet, tp=mesh.tp if mesh is not None else None, sp=sp_axis):
-        x0 = dp_sample(
-            apply_fn, pipe.schedule, steps=steps, sample_shape=sample_shape, n_samples=n,
-            cond=cond, uncond=uncond, guidance_scale=args.cfg_scale, eta=args.eta,
-            sampler_name=sampler, seed=resolved_seed, mesh=mesh, parameterization=param,
-            latents=latents, is_vid2vid=is_vid2vid, strength=strength, mask=mask,
-            image_latents=image_latents, inpaint_mode=inpaint_mode, cfg_combine_mode=combine)
+    with pt.phase("sample"):
+        with parallel_unet(pipe.unet, tp=mesh.tp if mesh is not None else None, sp=sp_axis):
+            x0 = dp_sample(
+                apply_fn, pipe.schedule, steps=steps, sample_shape=sample_shape, n_samples=n,
+                cond=cond, uncond=uncond, guidance_scale=args.cfg_scale, eta=args.eta,
+                sampler_name=sampler, seed=resolved_seed, mesh=mesh, parameterization=param,
+                latents=latents, is_vid2vid=is_vid2vid, strength=strength, mask=mask,
+                image_latents=image_latents, inpaint_mode=inpaint_mode, cfg_combine_mode=combine)
+        _sync(pipe.device)
     job_state.sampling_step = steps
 
     result = RunResult()
     if not multihost.is_primary():
+        result.timings = dict(pt.times)
         return result
     for batch in range(n):
         if job_state.interrupted:
@@ -467,18 +487,26 @@ def _run_dp(pipe, args: T2VArgs, out_args, outdir, resolved_seed: int, timestrin
         if job_state.skipped:
             job_state.skipped = False
             continue
-        frames = pipe.decode_latents(x0[batch])
-        _emit_batch(
-            result, list(frames), pipe.create_infotext(args, resolved_seed + batch), args,
-            out_args, outdir, timestring, batch, resolved_seed + batch, save_frames, pipe.device)
+        decoded = pt.times.get("decode", 0.0)
+        with pt.phase("decode"):
+            frames = pipe.decode_latents(x0[batch])
+        phases = {"text": pt.times["text"], "sample": pt.times["sample"],
+                  "decode": pt.times["decode"] - decoded}
+        with pt.phase("emit"):
+            _emit_batch(
+                result, list(frames), pipe.create_infotext(args, resolved_seed + batch), args,
+                out_args, outdir, timestring, batch, resolved_seed + batch, save_frames,
+                pipe.device, phase_times=phases)
+    result.timings = dict(pt.times)
     return result
 
 
 def _emit_batch(
     result: RunResult, frames, infotext, args, out_args, outdir, timestring,
-    batch: int, seed: int, save_frames: bool, device="cpu",
+    batch: int, seed: int, save_frames: bool, device="cpu", phase_times=None,
 ) -> None:
-    """PNG dump + args.txt + manifest + mp4 stitch + data URL for one batch."""
+    """PNG dump + args.txt + manifest + mp4 stitch + data URL for one batch;
+    the manifest records ``phase_times``, the batch's request phases."""
     batch_dir = os.path.join(
         outdir, timestring if batch == 0 else f"{timestring}_{batch}"
     )
@@ -511,9 +539,8 @@ def _emit_batch(
             written_pngs.append(p)
         with open(os.path.join(batch_dir, "args.txt"), "w") as f:
             f.write(infotext)
-        from t2v_torch.core.profiling import RunManifest
-
-        RunManifest.from_args(args, seed=seed, device=device).write(batch_dir)
+        RunManifest.from_args(args, seed=seed, device=device,
+                              phase_times=phase_times).write(batch_dir)
 
     # functional upscale / frame interpolation (the reference carries these
     # fields but never implements them)

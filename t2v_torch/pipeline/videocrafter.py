@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 import warnings
 from dataclasses import dataclass
 
@@ -49,6 +48,7 @@ from t2v_torch.core.config import (
     sanity_check_args,
 )
 from t2v_torch.core.dtypes import Policy
+from t2v_torch.core.profiling import PhaseTimes, span
 from t2v_torch.diffusion import ddpm
 from t2v_torch.diffusion.sampling import make_eps_fn, sample_loop
 from t2v_torch.diffusion.schedules import DiffusionSchedule, beta_schedule
@@ -499,49 +499,48 @@ class VideoCrafterPipeline:
         shape = (1, args.frames, args.height // ss, args.width // ss, self.cfg.in_channels)
         dev = self.device
 
-        t0 = time.perf_counter()
-        cond = self.encode_text([args.prompt])
-        uncond = self.encode_text([args.n_prompt])
-        tc = self._resolve_temporal_context(args)
-        _sync(dev)
-        t_text = time.perf_counter() - t0
+        pt = PhaseTimes()
+        with span("t2v.request", str(batch_seed)):
+            with pt.phase("text"):
+                cond = self.encode_text([args.prompt])
+                uncond = self.encode_text([args.n_prompt])
+                tc = self._resolve_temporal_context(args)
+                _sync(dev)
 
-        t0 = time.perf_counter()
-        gen = rng_lib.generator(batch_seed, dev)
-        if noise is None:
-            noise = rng_lib.latent_noise(gen, shape, dev)
-        noise = noise.to(dev)
-        apply_fn = self.make_apply_fn(features_adapter, tc)
-        if sample_type == "ddpm":
-            eps_fn = make_eps_fn(apply_fn, cond, uncond, args.cfg_scale, "full",
-                                 self.cfg.parameterization, self.schedule)
-            # LVDM's latent diffusion does not clip x0 (latents exceed +-1)
-            x0 = ddpm.sample(eps_fn, self.schedule, noise, generator=gen,
-                             noise_table=ddpm_noise, clip_denoised=False)
-        else:
-            # the blend needs both; a mask alone selects it and blends nothing
-            blend = mask is not None
-            x0 = sample_loop(
-                apply_fn, self.schedule, steps=args.steps, shape=shape, cond=cond,
-                uncond=uncond, guidance_scale=args.cfg_scale, eta=args.eta,
-                sampler_name="DPM++ 2M" if sample_type == "dpm++ 2m" else "DDIM",
-                generator=gen, noise=noise, device=dev,
-                mask=mask.to(dev) if blend else None,
-                image_latents=None if source_latents is None else source_latents.to(dev),
-                inpaint_mode="lvdm_static" if blend else "initial_only",
-                cfg_combine_mode=uc_type, parameterization=self.cfg.parameterization,
-                callback=callback, callback_interval=callback_interval,
-                step_noise=step_noise, inpaint_noise=inpaint_noise,
-            )
-        _sync(dev)
-        t_sample = time.perf_counter() - t0
+            with pt.phase("sample"):
+                gen = rng_lib.generator(batch_seed, dev)
+                if noise is None:
+                    noise = rng_lib.latent_noise(gen, shape, dev)
+                noise = noise.to(dev)
+                apply_fn = self.make_apply_fn(features_adapter, tc)
+                if sample_type == "ddpm":
+                    eps_fn = make_eps_fn(apply_fn, cond, uncond, args.cfg_scale, "full",
+                                         self.cfg.parameterization, self.schedule)
+                    # LVDM's latent diffusion does not clip x0 (latents exceed +-1)
+                    x0 = ddpm.sample(eps_fn, self.schedule, noise, generator=gen,
+                                     noise_table=ddpm_noise, clip_denoised=False)
+                else:
+                    # the blend needs both; a mask alone selects it and blends nothing
+                    blend = mask is not None
+                    x0 = sample_loop(
+                        apply_fn, self.schedule, steps=args.steps, shape=shape, cond=cond,
+                        uncond=uncond, guidance_scale=args.cfg_scale, eta=args.eta,
+                        sampler_name="DPM++ 2M" if sample_type == "dpm++ 2m" else "DDIM",
+                        generator=gen, noise=noise, device=dev,
+                        mask=mask.to(dev) if blend else None,
+                        image_latents=None if source_latents is None else source_latents.to(dev),
+                        inpaint_mode="lvdm_static" if blend else "initial_only",
+                        cfg_combine_mode=uc_type, parameterization=self.cfg.parameterization,
+                        callback=callback, callback_interval=callback_interval,
+                        step_noise=step_noise, inpaint_noise=inpaint_noise,
+                    )
+                _sync(dev)
 
-        t0 = time.perf_counter()
-        frames = self.decode_latents(x0[0])
-        t_decode = time.perf_counter() - t0
+            with pt.phase("decode"):
+                frames = self.decode_latents(x0[0])
         return InferResult(
             frames=frames, latents=x0, infotext=self.create_infotext(args, batch_seed),
-            timings={"text": t_text, "sample": t_sample, "decode": t_decode},
+            timings=dict(pt.times),
         )
 
     def build_inpainting_inputs(self, image_rgb, args: T2VArgs) -> tuple[torch.Tensor, torch.Tensor]:
