@@ -36,9 +36,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmark import program
+from benchmark import program, spec
 from benchmark.loops import lora_train as lt
-from benchmark.reference import modelscope, sampling, text, vae
+from benchmark.reference import sampling, text
 from benchmark.reference.ops import Ops, strict_fp32
 
 NAMES = ("loss", "grad", "change")
@@ -60,6 +60,7 @@ def reference_steps(cfg: dict, traffic: dict, run_seed: int, device, dtype, ops:
     tr = traffic
     s = lt.seeds(run_seed)
     sd = sd or program.reference_weights(cfg, run_seed, device, dtype)
+    fam = spec.family(cfg)
     tok = text.Tokenizer(cfg["tokenizer"]["merge_words"])
     unet_shapes = program.param_shapes(cfg)["unet"]
     tree = lt.draw_lora(unet_shapes, tr["lora_rank"], s["lora"], device)
@@ -78,11 +79,10 @@ def reference_steps(cfg: dict, traffic: dict, run_seed: int, device, dtype, ops:
     for step in range(tr["checked_steps"]):
         picked = lt.batch_of(tr, step)
         with torch.no_grad():
-            lat = torch.stack([torch.cat([vae.encode_mean(sd["vae"], cfg["vae"], torch.as_tensor(
+            lat = torch.stack([torch.cat([fam.VAE.encode_mean(sd["vae"], cfg["vae"], torch.as_tensor(
                 clips[k][i:i + 8], device=device), ops) for i in range(0, tr["frames"], 8)]) * scale
                 for k in picked])
-            ctx = torch.cat([text.modelscope_context(sd["text"], cfg["text"], tok, caps[k], ops)
-                             for k in picked])
+            ctx = torch.cat([fam.context(sd, cfg, tok, caps[k], ops) for k in picked])
         t = torch.randint(0, sampling.T, (len(picked),), generator=gen, device=device)
         noise = torch.randn(lat.shape, generator=gen, device=device, dtype=torch.float32)
         total = 0.0
@@ -91,7 +91,7 @@ def reference_steps(cfg: dict, traffic: dict, run_seed: int, device, dtype, ops:
             for m, ab in tree.items():
                 merged[f"{m}.weight"] = sd["unet"][f"{m}.weight"] + (ab["lora_A"] @ ab["lora_B"]).T * tr["lora_alpha"]
             xt = sa[t[k]] * lat[k:k + 1] + s1[t[k]] * noise[k:k + 1]
-            pred = modelscope.forward(merged, cfg["unet"], xt, t[k:k + 1].float(), ctx[k:k + 1], ops)
+            pred = fam.UNET.forward(merged, cfg["unet"], xt, t[k:k + 1].float(), ctx[k:k + 1], ops)
             term = ((pred - noise[k:k + 1]) ** 2).sum() / noise.numel()
             term.backward()
             total += float(term.detach())

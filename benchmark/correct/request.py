@@ -38,8 +38,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmark import program, prompts
-from benchmark.reference import modelscope, sampling, text, vae, videocrafter
+from benchmark import program, prompts, spec
+from benchmark.reference import sampling, text
 from benchmark.reference.ops import Ops, strict_fp32
 
 NAMES = ("calls", "timesteps", "start", "text", "unet", "step", "decode")
@@ -57,26 +57,26 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 class Reference:
-    """The reference models of one configuration, on the run's weights."""
+    """The reference models of one configuration (its family's text
+    context, denoiser and decode), on the run's weights."""
 
     def __init__(self, cfg: dict, run_seed: int, device, dtype: torch.dtype, ops: Ops,
                  sd: dict | None = None):
         self.cfg, self.ops, self.device = cfg, ops, device
         self.sd = sd if sd is not None else program.reference_weights(cfg, run_seed, device, dtype)
         self.tok = text.Tokenizer(cfg["tokenizer"]["merge_words"])
-        self.ms = cfg["family"] == "modelscope"
+        self.fam = spec.family(cfg)
 
     def context(self, prompt: str) -> torch.Tensor:
-        fn = text.modelscope_context if self.ms else text.videocrafter_context
-        return fn(self.sd["text"], self.cfg["text"], self.tok, prompt, self.ops)
+        return self.fam.context(self.sd, self.cfg, self.tok, prompt, self.ops)
 
     def unet(self, x, t, ctx) -> torch.Tensor:
-        mod = modelscope if self.ms else videocrafter
-        return mod.forward(self.sd["unet"], self.cfg["unet"], x, t, ctx, self.ops)
+        return self.fam.UNET.forward(self.sd["unet"], self.cfg["unet"], x, t, ctx, self.ops)
 
     def decode(self, latents) -> torch.Tensor:
-        return vae.decode_frames(self.sd["vae"], self.cfg["vae"], latents,
-                                 self.cfg["vae"]["scale_factor"], self.ops)
+        vae = self.cfg["vae"]
+        return self.fam.VAE.decode_frames(self.sd["vae"], vae, latents, vae["scale_factor"],
+                                          self.ops)
 
     def start(self, seed: int, shape) -> torch.Tensor:
         gen = torch.Generator(device=self.device)

@@ -10,19 +10,22 @@ Each planter takes an object with ``setattr(obj, name, value)`` (pytest's
 * ``half_batch``: the UNet computes half of its batch and fills the rest
   with the mean of that half;
 * ``frame_altered``: the decode adds 24 levels to the first frame it makes;
+* ``exchange_skipped``: the UNet's frame-mixing blocks run on a rank's own
+  frames, the exchange between the cards left out (cells over several
+  cards);
 * ``state_unchanged``: a training step leaves the adapter as it was;
 * ``half_loss``: the loss takes half of the batch, its mean over the rest;
 * ``gradient_altered``: the largest gradient leaf of a step is doubled.
 
-The exchange between chips is a fault of four-chip cells; every cell of
-this benchmark runs on one. For each seed the script runs the cell with
-the fault planted (a window of one unit) and prints its compared numbers
-beside their limits.
+For each seed the script runs the cell with the fault planted in every
+rank (a window of the units the check captures) and prints its compared
+numbers beside their limits.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -58,18 +61,24 @@ def step_unchanged(patch):
 
 
 def half_batch(patch):
-    from t2v_torch.models.modelscope_unet import UNetSD
-    from t2v_torch.models.videocrafter_unet import VideoCrafterUNet
+    from benchmark import program
 
-    for cls in (UNetSD, VideoCrafterUNet):
+    build = program.build
+
+    def built(*args, **kwargs):  # the built pipeline's UNet class, patched
+        pipe = build(*args, **kwargs)
+        cls = type(pipe.unet)
         orig = cls.forward
 
-        def half(self, x, t, context, *a, _orig=orig, **k):
+        def half(self, x, t, context, *a, **k):
             b = x.shape[0] // 2
-            out = _orig(self, x[:b], t[:b], context[:b], *a, **k)
+            out = orig(self, x[:b], t[:b], context[:b], *a, **k)
             return torch.cat([out, out.mean(0, keepdim=True).expand(x.shape[0] - b, *out.shape[1:])])
 
         patch.setattr(cls, "forward", half)
+        return pipe
+
+    patch.setattr(program, "build", built)
 
 
 def frame_altered(patch):
@@ -83,6 +92,12 @@ def frame_altered(patch):
         return img
 
     patch.setattr(pipeline, "decode_uint8", altered)
+
+
+def exchange_skipped(patch):
+    from t2v_torch.models import blocks
+
+    patch.setattr(blocks, "frames_gathered", lambda forward, x, sp, frames_dim=1: forward(x))
 
 
 def state_unchanged(patch):
@@ -122,26 +137,35 @@ REQUEST = {"step_unchanged": step_unchanged, "half_batch": half_batch,
            "frame_altered": frame_altered}
 TRAINING = {"state_unchanged": state_unchanged, "half_loss": half_loss,
             "gradient_altered": gradient_altered}
+EXCHANGE = {"exchange_skipped": exchange_skipped}
+ALL = {**REQUEST, **TRAINING, **EXCHANGE}
+
+
+@contextlib.contextmanager
+def planted(name: str | None):
+    """The fault ``name`` planted while the block runs (nothing for None)."""
+    patch = Patch()
+    if name is not None:
+        ALL[name](patch)
+    try:
+        yield
+    finally:
+        patch.undo()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
-    ap.add_argument("--fault", required=True, choices=sorted({**REQUEST, **TRAINING}))
+    ap.add_argument("--fault", required=True, choices=sorted(ALL))
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ns = ap.parse_args(argv)
     from benchmark import run, spec
 
     run.cache_env(ROOT)
     cell = spec.cell(ns.workload)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device_type = "cuda" if torch.cuda.is_available() else "cpu"
     for seed in ns.seeds:
-        patch = Patch()
-        {**REQUEST, **TRAINING}[ns.fault](patch)
-        try:
-            res, _ = run.run_cell(cell, seed, 0.0, False, device)
-        finally:
-            patch.undo()
+        res, _ = run.launch(cell, seed, 0.0, False, device_type, fault=ns.fault)
         print(json.dumps({"workload": ns.workload, "fault": ns.fault, "seed": seed,
                           "correct": res["correct"], "checks": res["checks"]}), flush=True)
     return 0

@@ -88,6 +88,8 @@ class Capture:
 class Loop:
     def __init__(self, cfg: dict, traffic: dict, run_seed: int, device, peaks: dict | None):
         spec.only_keys(traffic, KEYS, "lora_train")
+        if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+            raise ValueError("the lora_train loop runs on one card")
         self.cfg, self.traffic, self.run_seed, self.device = cfg, traffic, int(run_seed), device
         self.tok = Tokenizer(cfg["tokenizer"]["merge_words"])
         self.timer = spans.Timer()
@@ -101,13 +103,12 @@ class Loop:
         from t2v_torch.parallel.train import (init_train_state, make_lora_train_step,
                                               make_optimizer, module_apply_fn, tree_items)
         from t2v_torch.pipeline.lora import init_lora, unet_module_index
-        from t2v_torch.core.config import ModelScopeUNetConfig, config_from_dict
 
         tr, dev = self.traffic, self.device
         s = seeds(self.run_seed)
         self.pipe = pipe = program.build(self.cfg, self.run_seed, dev)
         base = dict(pipe.unet.named_parameters())
-        index = unet_module_index(config_from_dict(ModelScopeUNetConfig, self.cfg["unet"]))
+        index = unet_module_index(spec.family(self.cfg).unet_config(self.cfg))
         tree = init_lora(base, index, tr["lora_rank"], torch.Generator(device=dev).manual_seed(0))
         drawn = draw_lora(program.param_shapes(self.cfg)["unet"], tr["lora_rank"], s["lora"], dev)
         if set(tree) != set(drawn):
@@ -172,6 +173,10 @@ class Loop:
         if self.counting:
             self.steps += 1
         return loss
+
+    def gathered(self, captures: list) -> list:
+        """The captured steps: one rank holds them all."""
+        return captures
 
     def model_flops(self) -> float:
         """Model operations of the window's steps: the UNet forward and the

@@ -3,14 +3,17 @@ last has answered. A traffic file of this loop sets no more than ``KEYS``.
 
 A traffic file of this loop names the entry the client calls:
 
-* ``infer``: one ``ModelScopePipeline.infer`` or ``VideoCrafterPipeline.infer``
-  request (a web UI or API user's video), with a no-op step callback every
-  ``callback_interval`` steps, as ``run`` passes one;
+* ``infer``: one ``infer`` request of the family's pipeline (a web UI or
+  API user's video), with a no-op step callback every ``callback_interval``
+  steps, as ``run`` passes one;
 * ``run``: ``t2v_torch.pipeline.run.run`` with ``batch_count`` videos and
   ``dp_shards`` = ``batch_count`` on one card and no process group: its one
   batched sampling loop (``parallel/dp_sample.py``), then per video the
   decode and the PNG frames under ``$TMPDIR``, with no mp4 (the host has no
-  ffmpeg).
+  ffmpeg). With ``sp_shards`` above 1 the cell runs one rank a card
+  (``benchmark/ranks.py``) and every rank calls ``run`` with that many
+  frame shards: each samples its F / sp frames of the one video, the UNet
+  gathers them where it mixes frames, and rank 0 decodes and writes.
 
 Request i's prompt and latent seed come from (run seed, i)
 (``benchmark/prompts.py``). Set-up warms every shape of the loop with one
@@ -19,7 +22,9 @@ short request (``warm_steps`` steps) from another stream of the seed.
 While a unit is ``captured`` the loop keeps what the timed path produced,
 for ``benchmark/correct/request.py``: each UNet call's input state,
 timesteps, text conditioning and output, and each decode's float32 latents
-and uint8 frames.
+and uint8 frames. Under a frame split each rank keeps its own frames of
+every call; ``gathered`` puts them together on rank 0 once the window and
+the traced units are over.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from benchmark import program, prompts, spans, spec
 from benchmark.reference.text import Tokenizer
@@ -37,7 +43,7 @@ from benchmark.work import layers as work
 
 KEYS = frozenset({"why", "loop", "entry", "batch_count", "frames", "height", "width", "steps",
                   "sampler", "eta", "cfg_scale", "n_prompt", "callback_interval", "warm_steps",
-                  "trace_units", "prompt"})
+                  "trace_units", "prompt", "sp_shards"})
 
 
 class Capture:
@@ -64,7 +70,11 @@ def _attention_work(mod, args, kwargs):
 
 
 def _temporal_conv_work(mod, args, kwargs):
+    """Work of one temporal convolution block: over every frame, which a
+    block whose frames are split over sp ranks gathers first."""
     b, f, h, w, c = args[0].shape
+    sp = getattr(mod, "sp", None)
+    f *= sp.size if sp is not None else 1
     return work.temporal_conv(b, f, h * w, c, itemsize=args[0].element_size())
 
 
@@ -80,6 +90,13 @@ class Loop:
     def __init__(self, cfg: dict, traffic: dict, run_seed: int, device, peaks: dict | None):
         spec.only_keys(traffic, KEYS, "request")
         self.cfg, self.traffic, self.run_seed, self.device = cfg, traffic, int(run_seed), device
+        self.fam = spec.family(cfg)
+        self.sp = traffic.get("sp_shards", 1)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if self.sp != world or (world > 1 and (traffic["entry"] != "run"
+                                               or traffic["batch_count"] != 1)):
+            raise ValueError(f"the request loop runs sp_shards {self.sp} on {world} rank(s): a "
+                             "frame split takes one rank a shard, one video through run")
         self.tok = Tokenizer(cfg["tokenizer"]["merge_words"])
         self.timer = spans.Timer()
         self.annot = spans.Annotator(peaks)
@@ -160,8 +177,7 @@ class Loop:
             prompt=p, n_prompt=tr["n_prompt"], sampler=tr["sampler"],
             steps=tr["warm_steps"] if warm else tr["steps"], frames=tr["frames"], seed=seed,
             cfg_scale=tr["cfg_scale"], width=tr["width"], height=tr["height"], eta=tr["eta"],
-            batch_count=tr["batch_count"],
-            model_type="VideoCrafter" if self.cfg["family"] == "videocrafter" else "ModelScope")
+            batch_count=tr["batch_count"], model_type=self.fam.MODEL_TYPE)
 
     def unit(self, i: int, warm: bool = False) -> int:
         """Answer request ``i``; returns the videos completed."""
@@ -171,8 +187,8 @@ class Loop:
             self.capture.requests += videos(tr, self.tok, self.run_seed, i)
         noop = lambda done: None
         if tr["entry"] == "infer":
-            kw = {"sample_type": "ddim"} if self.cfg["family"] == "videocrafter" else {}
-            res = self.pipe.infer(args, callback=noop, callback_interval=tr["callback_interval"], **kw)
+            res = self.pipe.infer(args, callback=noop, callback_interval=tr["callback_interval"],
+                                  **self.fam.INFER_KWARGS)
             if self.counting and not warm:
                 self.decode_s.append(res.timings["decode"])
                 self.videos += 1
@@ -182,16 +198,33 @@ class Loop:
         from t2v_torch.pipeline.run import run
 
         out = run(args, T2VOutputArgs(skip_video_creation=True), pipe=self.pipe,
-                  outdir=self.outdir, dp_shards=tr["batch_count"],
+                  outdir=self.outdir, dp_shards=tr["batch_count"], sp_shards=self.sp,
                   callback_interval=tr["callback_interval"],
                   device=str(self.device))
         for d in out.frame_dirs:
             shutil.rmtree(d, ignore_errors=True)
         n = len(out.frame_dirs)
         if self.counting and not warm:
+            if n:  # the ranks that decode: a video's share of the request's decodes
+                self.decode_s += [out.timings["decode"] / n] * n
             self.videos += n
             self.requests += 1
         return n
+
+    def gathered(self, captures: list) -> list:
+        """The captured units with every call's whole state and output: under
+        a frame split, every rank's frames of each call in rank order (a
+        dp = tp = 1 mesh puts sp index s on rank s), complete on rank 0.
+        Collective: every rank calls it with captures of the same calls."""
+        if self.sp == 1:
+            return captures
+        for cap in captures:
+            for call in cap.calls:
+                for key in ("x", "out"):
+                    parts = [torch.empty_like(call[key]) for _ in range(self.sp)]
+                    dist.all_gather(parts, call[key].contiguous())
+                    call[key] = torch.cat(parts, dim=1)
+        return captures
 
     def release(self) -> None:
         """Drop the program's state (``run`` keeps the last pipeline in a

@@ -1,5 +1,7 @@
 """decode_ms: the port's own synced decode time of a video
-(``InferResult.timings["decode"]``), mean over the window, in ms."""
+(``InferResult.timings["decode"]``, or ``RunResult.timings["decode"]`` over
+the request's videos, on the rank that decodes), mean over the window, in
+ms."""
 
 
 def read(run):

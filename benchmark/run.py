@@ -22,8 +22,14 @@ From the root of a checkout that holds the port (``t2v_torch``). One run:
    result line (``checks``);
 5. the result line, last on standard output.
 
-Exits 2 without a result when CUDA or the cell's cards are missing, and 3
-when the process has loaded JAX or the JAX package.
+A cell of ``chips`` above 1 runs one rank a card (``benchmark/ranks.py``):
+this process is rank 0 on ``cuda:0`` and does all of the above; the others
+run the same set-up and units in lockstep, and hand rank 0 their memory
+peaks (the result's is the largest) and their share of the captures.
+
+Exits 2 without a result when CUDA or the cell's cards are missing, 3 when
+any rank's process has loaded JAX or the JAX package, and 1 when a rank
+fails.
 """
 
 from __future__ import annotations
@@ -61,6 +67,12 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
+def forbidden_mask() -> int:
+    """``forbidden_modules`` as bits of ``FORBIDDEN``, to gather from each rank."""
+    found = forbidden_modules()
+    return sum(1 << i for i, name in enumerate(FORBIDDEN) if name in found)
+
+
 def power_limit() -> str | None:
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -84,9 +96,13 @@ class Run:
         self.unit_cpu: list[float] = []  # the process's CPU seconds in each unit
         self.unit_steal: list[float] = []  # the host's steal seconds (all cores) in each unit
         self.gc_runs = 0  # the collector's runs inside the window
+        self.peaks_by_rank: list[int] = []  # each rank's memory peak over the window
+        self.forbidden_by_rank: list[int] = []  # each rank's ``forbidden_mask`` at its end
+        self.on_card = False
         self.busy = None  # (busy s, window s) of the device-only trace
         self.trace = None
         self.notes = {}
+        self.check_s = 0.0  # seconds the reference took to judge the captures
 
 
 def steal_s() -> float:
@@ -110,20 +126,35 @@ def captured_units(cell, seed: int) -> list[int]:
     return sorted(int(i) for i in rng.choice(chk["within"], size=chk["units"], replace=False))
 
 
-def run_cell(cell, seed: int, seconds: float, trace: bool, device, peaks=None) -> tuple[dict, Run]:
-    """Set up, measure, trace and judge one cell; returns (result, run)."""
-    import importlib
+def memory_peak(device) -> int:
+    """The most memory this process has held on ``device`` since the last
+    reset: the CUDA allocator's peak on a card, the process's resident peak
+    on the CPU (where the harness runs only in tests)."""
+    if device.type == "cuda":
+        import torch
 
+        return torch.cuda.max_memory_allocated(device)
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def run_cell(cell, seed: int, seconds: float, trace: bool, device, peaks=None,
+             ranks=None) -> tuple[dict | None, Run]:
+    """Set up, measure, trace and judge one cell as one rank of ``ranks`` (a
+    group of one by default); returns (result, run) on rank 0 and (None,
+    run) on the others."""
     import torch
 
     from benchmark import program, spec
+    from benchmark.ranks import ONE
 
-    loop = cell.traffic["loop"]
-    loops = importlib.import_module(f"benchmark.loops.{loop}")
-    correct = importlib.import_module(f"benchmark.correct.{loop}")
+    ranks = ranks or ONE
+    loops, correct = spec.loop(cell.traffic)
     on_card = device.type == "cuda"
     runner = loops.Loop(cell.config, cell.traffic, seed, device, peaks)
     run = Run(cell, runner, peaks)
+    run.on_card = on_card
     runner.setup()
     if on_card:
         torch.cuda.synchronize()
@@ -150,7 +181,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, peaks=None) -
             captures.append(runner.capture)
             runner.capture = None
         i += 1
-        if time.perf_counter() - t0 >= seconds and i > max(wanted, default=-1):
+        if ranks.agree(time.perf_counter() - t0 >= seconds and i > max(wanted, default=-1)):
             break
     if on_card:
         torch.cuda.synchronize()
@@ -158,8 +189,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, peaks=None) -
     run.units = i
     run.gc_runs = sum(g["collections"] for g in gc.get_stats()) - gc_before
     runner.counting = runner.timer.on = False
-    if on_card:
-        run.peak_bytes = torch.cuda.max_memory_allocated()
+    run.peaks_by_rank = ranks.each(memory_peak(device))
+    run.peak_bytes = max(run.peaks_by_rank)
 
     if trace:
         from benchmark import trace as tracing
@@ -170,31 +201,42 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, peaks=None) -
             for k in range(n):
                 runner.unit(first + k)
 
-        run.busy = tracing.busy(lambda: units(i))
-        runner.annot.on = True
-        run.trace = tracing.record(lambda: units(i + n))
-        runner.annot.on = False
+        if ranks.primary:
+            run.busy = tracing.busy(lambda: units(i))
+            runner.annot.on = True
+            run.trace = tracing.record(lambda: units(i + n))
+            runner.annot.on = False
+        else:  # the same units, untraced: they are collective
+            units(i)
+            units(i + n)
 
     metrics = {}
-    for m in (cell.per_layer if trace else cell.end_to_end):
+    for m in (cell.per_layer if trace else cell.end_to_end) if ranks.primary else ():
         value = spec.reader(m["name"])(run)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
 
+    captures = runner.gathered(runner.setup_captures + captures)
     runner.release()
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    numbers = correct.check(cell.config, cell.traffic, runner.setup_captures + captures, seed,
+    run.forbidden_by_rank = ranks.each(forbidden_mask())
+    ranks.close()
+    if not ranks.primary:
+        return None, run
+    t_check = time.perf_counter()
+    numbers = correct.check(cell.config, cell.traffic, captures, seed,
                             device, program.DTYPES[cell.config["dtype"]], cell.check["check"])
+    run.check_s = time.perf_counter() - t_check
     limits = cell.check["limits"]
     run.notes = numbers.pop("notes", {})
     checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
     ok = all(v["value"] <= v["limit"] for v in checks.values())
     result = {"correct": bool(ok), "attempted": run.units, "failed": 0, "metrics": metrics}
     dev = {"platform": "gpu" if on_card else "cpu",
-           "kind": torch.cuda.get_device_name() if on_card else "cpu",
-           "count": 1, "memory_peak_bytes": int(run.peak_bytes)}
+           "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
+           "count": ranks.world, "memory_peak_bytes": int(run.peak_bytes)}
     if run.trace is not None:
         dev.update(busy_s=run.busy[0], window_s=run.busy[1])
         result["breakdown"] = {"device_ops": run.trace.device_ops(),
@@ -202,6 +244,84 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, peaks=None) -
     result["device"] = dev
     result["checks"] = checks
     return result, run
+
+
+def launch(cell, seed: int, seconds: float, trace: bool, device_type: str = "cuda",
+           fault: str | None = None) -> tuple[dict, Run]:
+    """Run ``cell`` with this process as rank 0, on ``cuda:0`` (or the
+    CPU), the other ranks started and stopped here; ``fault`` names a fault
+    of ``benchmark/faults.py`` planted in every rank. Returns rank 0's
+    (result, run)."""
+    import torch
+
+    from benchmark import faults, ranks as group, spec
+
+    peaks = None
+    if device_type == "cuda":
+        peaks = spec.load_json(os.path.join(spec.HERE, "work", "peaks.json")).get(
+            torch.cuda.get_device_name(0))
+    if cell.chips == 1:
+        device = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        with faults.planted(fault):
+            return run_cell(cell, seed, seconds, trace, device, peaks)
+    port = group.free_port()
+    procs = group.start(cell, seed, seconds, trace, port, device_type, fault)
+    watch = group.Watch(procs)
+    try:
+        ranks = group.join(0, cell.chips, port, device_type)
+        with faults.planted(fault):
+            return run_cell(cell, seed, seconds, trace, ranks.device, peaks, ranks=ranks)
+    finally:
+        watch.close()
+        group.stop(procs)
+
+
+def serve(cell, seed: int, seconds: float, trace: bool, device_type: str = "cuda") -> int:
+    """Run ``cell`` (``launch``) and print rank 0's lines: what the run
+    measured and each number compared, on standard error, then the result
+    line, last on standard output. Returns the exit code."""
+    import torch
+
+    card = power_limit() if device_type == "cuda" else None
+    result, run = launch(cell, seed, seconds, trace, device_type)
+    if card:
+        result["device"]["power"] = card
+    masks = list(run.forbidden_by_rank) or [0]
+    masks[0] |= forbidden_mask()  # rank 0 once more, after the reference
+    loaded = {r: [name for i, name in enumerate(FORBIDDEN) if m >> i & 1]
+              for r, m in enumerate(masks) if m}
+    if loaded:
+        for r, names in loaded.items():
+            print(f"benchmark: rank {r} loaded {', '.join(names)}; the port must not",
+                  file=sys.stderr)
+        return 3
+    print(f"benchmark: {cell.name} seed {seed}: {run.units} units in {run.window_s:.3f} s, "
+          f"set-up {run.setup_s:.3f} s, card {card}, {torch.get_num_threads()} torch threads, "
+          f"{len(os.sched_getaffinity(0))} cores", file=sys.stderr)
+    ends = [0.0] + run.unit_ends
+    print("benchmark: unit seconds " + " ".join(f"{b - a:.3f}" for a, b in zip(ends, ends[1:])),
+          file=sys.stderr)
+    print("benchmark: unit cpu seconds " + " ".join(f"{c:.3f}" for c in run.unit_cpu),
+          file=sys.stderr)
+    print("benchmark: unit steal seconds " + " ".join(f"{c:.2f}" for c in run.unit_steal)
+          + f"; {run.gc_runs} collector runs in the window", file=sys.stderr)
+    if len(run.peaks_by_rank) > 1:
+        print("benchmark: memory peak by rank " + " ".join(str(b) for b in run.peaks_by_rank),
+              file=sys.stderr)
+    if run.busy is not None:
+        print(f"benchmark: traced {run.busy[1]:.3f} s, device busy {run.busy[0]:.3f} s; "
+              f"with spans {run.trace.window_s:.3f} s, busy {run.trace.busy_s:.3f} s; "
+              f"{len(run.trace.unmatched)} device operations with no launch found "
+              f"{sorted(set(run.trace.unmatched))[:3]}", file=sys.stderr)
+    print(f"benchmark: the check took {run.check_s:.1f} s", file=sys.stderr)
+    for k, v in run.notes.items():
+        print(f"note {k}: {v:.6g} (not compared)", file=sys.stderr)
+    for k, v in result["checks"].items():
+        print(f"check {k}: {v['value']:.6g} (limit {v['limit']:.6g})", file=sys.stderr)
+    print(json.dumps(result), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -223,39 +343,7 @@ def main(argv=None) -> int:
               f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    peaks = spec.load_json(os.path.join(spec.HERE, "work", "peaks.json")).get(
-        torch.cuda.get_device_name())
-    card = power_limit()
-    result, run = run_cell(cell, ns.seed, ns.seconds, bool(ns.trace), device, peaks)
-    if card:
-        result["device"]["power"] = card
-    found = forbidden_modules()
-    if found:
-        print(f"benchmark: the process loaded {', '.join(found)}; the port must not",
-              file=sys.stderr)
-        return 3
-    print(f"benchmark: {ns.workload} seed {ns.seed}: {run.units} units in {run.window_s:.3f} s, "
-          f"set-up {run.setup_s:.3f} s, card {card}, {torch.get_num_threads()} torch threads, "
-          f"{len(os.sched_getaffinity(0))} cores", file=sys.stderr)
-    ends = [0.0] + run.unit_ends
-    print("benchmark: unit seconds " + " ".join(f"{b - a:.3f}" for a, b in zip(ends, ends[1:])),
-          file=sys.stderr)
-    print("benchmark: unit cpu seconds " + " ".join(f"{c:.3f}" for c in run.unit_cpu),
-          file=sys.stderr)
-    print("benchmark: unit steal seconds " + " ".join(f"{c:.2f}" for c in run.unit_steal)
-          + f"; {run.gc_runs} collector runs in the window", file=sys.stderr)
-    if run.busy is not None:
-        print(f"benchmark: traced {run.busy[1]:.3f} s, device busy {run.busy[0]:.3f} s; "
-              f"with spans {run.trace.window_s:.3f} s, busy {run.trace.busy_s:.3f} s",
-              file=sys.stderr)
-    for k, v in run.notes.items():
-        print(f"note {k}: {v:.6g} (not compared)", file=sys.stderr)
-    for k, v in result["checks"].items():
-        print(f"check {k}: {v['value']:.6g} (limit {v['limit']:.6g})", file=sys.stderr)
-    print(json.dumps(result))
-    return 0
+    return serve(cell, ns.seed, ns.seconds, bool(ns.trace))
 
 
 if __name__ == "__main__":

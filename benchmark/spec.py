@@ -1,6 +1,9 @@
 """The benchmark's files, found by the names in ``BENCHMARK.json``.
 
-* ``benchmark/configs/<config>.json``: a model configuration as it runs;
+* ``benchmark/configs/<config>.json``: a model configuration as it runs,
+  whose ``family`` names ``benchmark/families/<family>.py``: the port's
+  pipeline of that family, its parameter lists, its plain reference and its
+  operation counts;
 * ``benchmark/traffic/<traffic>.json``: a traffic mix, run by the loop its
   ``loop`` names (``benchmark/loops/<loop>.py``) and judged by the comparison of
   the same name (``benchmark/correct/<loop>.py``);
@@ -13,6 +16,8 @@
 
 from __future__ import annotations
 
+import functools
+import importlib
 import importlib.util
 import json
 import os
@@ -73,11 +78,37 @@ def only_keys(traffic: dict, keys: frozenset, loop: str) -> None:
         raise ValueError(f"the {loop} loop reads no {', '.join(unknown)}")
 
 
+def loop(traffic: dict) -> tuple:
+    """(the module of the traffic's loop, the module of its comparison):
+    ``benchmark/loops/<loop>.py`` and ``benchmark/correct/<loop>.py``, or,
+    where ``loop`` is a dotted module path, that one module for both (the
+    stub loop of the harness's tests)."""
+    name = traffic["loop"]
+    if "." in name:
+        mod = importlib.import_module(name)
+        return mod, mod
+    return (importlib.import_module(f"benchmark.loops.{name}"),
+            importlib.import_module(f"benchmark.correct.{name}"))
+
+
 def load_module(path: str, name: str):
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+@functools.lru_cache(maxsize=None)
+def _family(name: str):
+    path = os.path.join(HERE, "families", name + ".py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no family {name!r}: benchmark/families/{name}.py is missing")
+    return load_module(path, "benchmark_family_" + name.replace(".", "_").replace("-", "_"))
+
+
+def family(cfg: dict):
+    """The module of the configuration's model family, loaded once."""
+    return _family(cfg["family"])
 
 
 def reader(metric: str):

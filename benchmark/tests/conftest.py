@@ -67,14 +67,18 @@ def tiny_config(config_name: str) -> dict:
 def tiny_cell(name: str, **traffic) -> spec.Cell:
     """The cell ``name`` of BENCHMARK.json at CPU size: its config cut by
     ``tiny_config``, its traffic at 4 frames of 32x32 and 4 sampler steps, or
-    training batches of 2 clips out of 6."""
+    training batches of 2 clips out of 6; a cell over several cards on two
+    CPU ranks, its frames split in two."""
     full = spec.cell(name)
     bench = spec.benchmark()
     conf = next(w["config"] for w in bench["workloads"] if w["name"] == name)
+    chips = min(full.chips, 2)
     if full.traffic["loop"] == "lora_train":
         tr = dict(full.traffic, frames=4, resolution=32, batch_size=2, clips=6)
     else:
         tr = dict(full.traffic, frames=4, height=32, width=32, steps=4, warm_steps=2)
+        if "sp_shards" in tr:
+            tr["sp_shards"] = chips
     tr.update(traffic)
-    return spec.Cell(name=name, chips=1, config=tiny_config(conf), traffic=tr, check=full.check,
-                     end_to_end=full.end_to_end, per_layer=full.per_layer)
+    return spec.Cell(name=name, chips=chips, config=tiny_config(conf), traffic=tr,
+                     check=full.check, end_to_end=full.end_to_end, per_layer=full.per_layer)

@@ -7,8 +7,9 @@ sampler step that returns its state unchanged; half of the UNet batch left
 out and the mean of the rest put in its place; a frame altered where the
 decode produces it. The training cell: a step that leaves the adapter
 unchanged; half of the batch left out of the loss, its mean taken over the
-rest; one leaf's gradient altered where it is produced. (The exchange
-between chips is a fault of four-chip cells; every cell here runs on one.)
+rest; one leaf's gradient altered where it is produced. The cell over
+several cards, its sound run and its faults (the exchange between the cards
+left out among them), runs on two CPU ranks in ``test_bench_ranks.py``.
 """
 
 import pytest
@@ -24,6 +25,7 @@ from benchmark.tests.conftest import tiny_cell
 from benchmark import program
 
 CELLS = ["ms24f-request", "vc16f-request", "ms24f-batch4"]
+SP = "ms252f-sp4"
 TRAIN = "ms-lora-train-b4"
 SEED = 2**31 + 12345  # a run's seed may need more than 32 signed bits
 
@@ -40,7 +42,7 @@ def test_sound_run_is_correct(name):
     assert list(res)[-1] == "checks"
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", CELLS + [SP])
 def test_control_is_not_correct(name):
     cell = tiny_cell(name)
     cfg, tr, dev = cell.config, cell.traffic, torch.device("cpu")
@@ -85,7 +87,7 @@ def test_training_fault_is_not_correct(fault, monkeypatch):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("name", CELLS + [TRAIN])
+@pytest.mark.parametrize("name", CELLS + [SP, TRAIN])
 def test_control_fails_at_cell_size(name, card):
     """On the card: the control at the cell's own size fails a limit."""
     from benchmark import spec

@@ -48,9 +48,10 @@ def test_names_and_units():
 def test_cell_files(name):
     cell = spec.cell(name)
     assert cell.chips in (1, 4)
-    assert cell.traffic["loop"] in ("request", "lora_train")
-    for mod in ("loops", "correct"):
+    for mod in ("loops", "correct"):  # the loop that runs the traffic and its comparison
         assert os.path.exists(os.path.join(spec.HERE, mod, cell.traffic["loop"] + ".py"))
+    assert os.path.exists(os.path.join(spec.HERE, "families", cell.config["family"] + ".py"))
+    assert callable(importlib.import_module(f"benchmark.correct.{cell.traffic['loop']}").check)
     loop = importlib.import_module(f"benchmark.loops.{cell.traffic['loop']}")
     assert set(cell.traffic) <= loop.KEYS, sorted(set(cell.traffic) - loop.KEYS)
     assert set(cell.check) == {"check", "limits"}
@@ -60,12 +61,20 @@ def test_cell_files(name):
 
 
 @pytest.mark.parametrize("key", ["clients", "arrivals"])
-def test_loop_refuses_a_key_it_does_not_read(key):
-    from benchmark.loops.request import Loop
-
-    cell = spec.cell("ms24f-request")
+@pytest.mark.parametrize("name", CELLS)
+def test_loop_refuses_a_key_it_does_not_read(key, name):
+    cell = spec.cell(name)
+    loop = importlib.import_module(f"benchmark.loops.{cell.traffic['loop']}")
     with pytest.raises(ValueError, match=key):
-        Loop(cell.config, dict(cell.traffic, **{key: 4}), 1, None, None)
+        loop.Loop(cell.config, dict(cell.traffic, **{key: 4}), 1, None, None)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_cells_over_several_cards_split_over_them(name):
+    """A cell whose traffic splits its frames (the request loop's
+    ``sp_shards``) runs one rank a shard, so one a card."""
+    cell = spec.cell(name)
+    assert cell.traffic.get("sp_shards", cell.chips) == cell.chips
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in METRICS])
@@ -96,7 +105,9 @@ def test_metric_entries():
 def test_config_files(conf):
     assert conf["file"].startswith("benchmark/")
     cfg = spec.load_json(os.path.join(spec.ROOT, conf["file"]))
-    assert cfg["family"] in ("modelscope", "videocrafter")
+    assert os.path.exists(os.path.join(spec.HERE, "families", cfg["family"] + ".py"))
     assert cfg["source"] == conf["source"]
     assert cfg["dtype"] == "bfloat16"
-    assert set(conf["reduced"]) <= set(cfg["unet"])
+    # a reduced key is one of the model's sections' keys, as the family names them
+    sections = spec.family(cfg).SECTIONS
+    assert set(conf["reduced"]) <= {k for s in sections for k in cfg[s]}

@@ -40,16 +40,21 @@ def test_whole_name_comparison():
 
 
 def test_dry_run_loads_none():
-    """A CPU run of every request cell at tiny size, in a fresh process,
-    then the top-level names of every module it holds."""
+    """A CPU run of every request cell at tiny size, in a fresh process (the
+    cell over several cards on two ranks, each of which reports what its own
+    process holds), then the top-level names of every module it holds."""
     code = (
         "import sys, torch\n"
         "from benchmark.tests.conftest import tiny_cell\n"
         "from benchmark import run\n"
-        "for name in ('ms24f-request', 'vc16f-request', 'ms24f-batch4'):\n"
-        "    res, _ = run.run_cell(tiny_cell(name), 7, 0.1, False, torch.device('cpu'))\n"
-        "    assert res['correct'], res\n"
-        "print('LOADED', ','.join(run.forbidden_modules()))\n"
+        "if __name__ == '__main__':\n"
+        "    torch.set_num_threads(2)\n"
+        "    for name in ('ms24f-request', 'vc16f-request', 'ms24f-batch4', 'ms252f-sp4'):\n"
+        "        res, r = run.launch(tiny_cell(name), 7, 0.1, False, 'cpu')\n"
+        "        assert res['correct'], res\n"
+        "        assert len(r.forbidden_by_rank) == r.cell.chips, r.forbidden_by_rank\n"
+        "        assert not any(r.forbidden_by_rank), (name, r.forbidden_by_rank)\n"
+        "    print('LOADED', ','.join(run.forbidden_modules()))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=spec.ROOT, capture_output=True,
                          text=True, timeout=600, env=dict(os.environ, PYTHONPATH=spec.ROOT))

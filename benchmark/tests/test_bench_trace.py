@@ -61,3 +61,34 @@ def test_trace_readers():
     # 75 ns of least time over 150 ns of device time under the attention span
     assert spec.reader("attention_roofline.request")(run) == pytest.approx(50.0)
     assert spec.reader("temporal_conv_roofline.request")(run) is None
+
+
+def test_collectives_under_the_unet():
+    """``collective_ms``: NCCL's kernels launched inside ``t2v.unet``, per
+    call; the roofline of a span leaves them out of its device time."""
+    tr = Trace(start=0, end=1000)
+    tr.spans = [("t2v.unet", 100, 400), ("temporal_conv", 150, 300), ("t2v.unet", 500, 800)]
+    tr.kernels = [("ncclDevKernel_AllGather_RING_LL", 200, 260, 160),
+                  ("gemm", 260, 300, 170), ("ncclKernel_AllGather", 600, 640, 550),
+                  ("ncclDevKernel_Broadcast", 900, 910, 850)]
+    annot = SimpleNamespace(calls={"temporal_conv": 1}, least_s={"temporal_conv": 20e-9})
+    run = SimpleNamespace(trace=tr, peaks={"flops": 1.0, "bytes_per_s": 1.0},
+                          runner=SimpleNamespace(annot=annot))
+    # 60 + 40 ns of NCCL kernels over two calls; the broadcast is outside both
+    assert spec.reader("collective_ms.request")(run) == pytest.approx(50e-6)
+    # 20 ns of least time over the gemm's 40 ns: the gather is not the block's
+    assert spec.reader("temporal_conv_roofline.request")(run) == pytest.approx(50.0)
+    tr.kernels = [k for k in tr.kernels if not k[0].startswith("nccl")]
+    assert spec.reader("collective_ms.request")(run) is None
+    assert spec.reader("collective_ms.request")(SimpleNamespace(trace=None)) is None
+
+
+def test_mfu_over_the_cells_cards():
+    """``mfu``: the whole work's operations over window x cards x one card's
+    peak."""
+    runner = SimpleNamespace(model_flops=lambda: 8.0e12)
+    run = SimpleNamespace(peaks={"flops": 1.0e12}, window_s=4.0, runner=runner,
+                          cell=SimpleNamespace(chips=1))
+    assert spec.reader("mfu.request")(run) == pytest.approx(200.0)
+    run.cell.chips = 4
+    assert spec.reader("mfu.request")(run) == pytest.approx(50.0)

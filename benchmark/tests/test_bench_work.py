@@ -63,3 +63,17 @@ def test_least_time():
     w = work.Work(flops=989e9, bytes=3.35e9)
     assert w.least_s({"flops": 989e12, "bytes_per_s": 3.35e12}) == 1e-3
     assert work.Work(1.0, 6.7e9).least_s({"flops": 989e12, "bytes_per_s": 3.35e12}) == 2e-3
+
+
+def test_temporal_conv_work_counts_every_frame_under_a_split():
+    """A temporal block whose frames are split over sp ranks gathers them:
+    its work is over every frame."""
+    from types import SimpleNamespace
+
+    from benchmark.loops.request import _temporal_conv_work
+
+    x = torch.empty(2, 6, 4, 4, 64, dtype=torch.bfloat16)
+    whole = _temporal_conv_work(SimpleNamespace(sp=None), (x,), {})
+    split = _temporal_conv_work(SimpleNamespace(sp=SimpleNamespace(size=4)), (x,), {})
+    assert whole.flops == work.temporal_conv(2, 6, 16, 64).flops
+    assert split.flops == work.temporal_conv(2, 24, 16, 64).flops

@@ -13,7 +13,9 @@ a ``record_function("traced_window")`` range and reduces the events to:
   start, end, launch), times in ns on the host's clock; ``launch`` is the
   host time of the runtime call that issued it (matched by correlation id);
 * ``spans``: the benchmark's ``record_function`` ranges, (name, start, end);
-* ``host``: the other host-side events (operators, runtime calls).
+* ``host``: the other host-side events (operators, runtime calls); the
+device operations whose launch it does not find are left out and named in
+``unmatched``.
 
 The readers in ``benchmark/metrics`` take their numbers from a ``Trace``.
 """
@@ -30,6 +32,12 @@ import torch
 WINDOW = "traced_window"
 
 
+def is_collective(name: str) -> bool:
+    """Whether a device operation is a collective's kernel (NCCL names its
+    kernels ``ncclKernel_*`` or ``ncclDevKernel_*``)."""
+    return name.startswith("nccl")
+
+
 @dataclass
 class Trace:
     kernels: list = field(default_factory=list)  # (name, start, end, launch)
@@ -37,6 +45,7 @@ class Trace:
     host: list = field(default_factory=list)  # (name, start, end)
     start: int = 0
     end: int = 0
+    unmatched: list = field(default_factory=list)  # device operations with no launch found
 
     @property
     def window_s(self) -> float:
@@ -168,4 +177,6 @@ def record(fn) -> Trace:
         launch = launches.get(corr, launches.get(linked))
         if launch is not None:
             tr.kernels.append((name, s, e, launch))
+        else:
+            tr.unmatched.append(name)
     return tr
